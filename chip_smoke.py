@@ -4,17 +4,22 @@
 
 Phases, each printing JSON lines (any failure exits nonzero):
   1. device   the card, its power limit, the torch and CUDA versions;
-  2. build    nvcc builds kernels B1 (ops/csrc/lstm_seq.cu) and B3
-              (ops/csrc/gather_unpack.cu) in parallel, with -Xptxas -v;
-  3. check    B1 against its plain version at the eval shape, the rollout
-              shape, the learner shape and a ragged batch; B2 (B1's forward, the plain
-              version's backward) against autograd of the plain version at
-              [80, 128, 512] on the flagship's LSTM weights, outputs and
-              every grad; B3 against its plain version on random bytes with
-              indices out of range;
+  2. build    nvcc builds kernels B1 (ops/csrc/lstm_seq.cu), B2's backward
+              (ops/csrc/lstm_bwd.cu) and B3 (ops/csrc/gather_unpack.cu) in
+              parallel, with -Xptxas -v;
+  3. check    on the flagship's LSTM weights: B1 against its plain version
+              at the eval shape, the rollout shape and a ragged batch; at
+              the learner shape [80, 128, 512] over 8 seeds, B1's and B2's
+              outputs and each of B2's grads against float64, no further
+              than twice the plain float32 version (autograd for the grads), B2's
+              forward equal to B1's bit for bit and its grads within
+              GRAD_REL_TOL of plain autograd; two calls of B1 and of B2 on the
+              same inputs give the same bits; B3 against its plain version on
+              random bytes and at indices out of range on both ends;
   4. timing   B1 at the eval, rollout and learner shapes, B2 forward + backward, B3,
               each beside its plain version, its library call (cuDNN
-              nn.LSTM for B1 and B2, none for B3) and its bound;
+              nn.LSTM for B1 and B2, none for B3), its bound and its launches
+              per call;
   5. eval     greedy self-play of docs/runs/sad_aux_r4_soup10.pkl, 1000 games,
               through B1, then through the plain LSTM on the same decks;
   6. train    the flagship SAD-AUX trainer (preset sad_2p, pred_weight 0.25,
@@ -49,18 +54,20 @@ KERNEL_TOL = 1e-4  # f32 sums in another order over K = 2H; state bounded by tan
 # seats, once per net), learner target forward; and a batch that is no
 # multiple of the kernel's 32-row tile.
 B1_CASES = {"eval": (1, 1000), "rollout": (1, 2048), "learner": (80, 128), "ragged": (1, 13)}
-# B2's outputs at [80, 128, 512]. B2's forward is B1 (checked bit for bit on
-# the same inputs), so its gap to the plain version is B1's: float32 sums in
-# two orders, amplified over 80 recurrent steps, and it depends on the input.
-# Over 8 random inputs (scripts/torch_lstm_error_spread.py, H100 80GB HBM3,
-# 700 W) it reached 1.7e-4 in outs, 1.3e-4 in hT and 1.6e-4 in cT (|cT| up
-# to 38), where the plain float32 version itself lay up to 1.4e-4 from
-# float64. Each output is bounded on its own scale at about 3x the largest
-# reading: outs and hT lie in (-1, 1), absolute; cT relative to max |cT|.
-B2_OUT_TOL = {"outs": 5e-4, "hT": 5e-4, "cT": 2e-5}
-# B2's grads are those of the plain version recomputed under autograd, so by
-# design they equal plain autograd's bit for bit: the comparison checks that
-# each grad reaches its input, not a kernel. Bounded relative to the largest
+# At the learner shape the gap between two float32 versions is rounding
+# amplified over 80 recurrent steps and depends on the input (it reached
+# 1.7e-4 where the plain version itself lay 1.4e-4 from float64,
+# scripts/torch_lstm_error_spread.py), so no absolute tolerance against the
+# plain version holds. There B1 and B2 are held against float64 instead, on
+# the inputs of scripts/torch_lstm_error_spread.py (seeds 0 .. F64_SEEDS - 1):
+# the largest distance of B1's outputs (outs, hT, cT) to float64 over those
+# inputs, and B2's, is at most F64_FACTOR times the plain float32 version's;
+# for each of B2's grads, relative to its largest float64 value, the same
+# against plain float32 autograd. The ratios of each output alone are
+# reported: input by input they spread over 0.25x to 13x, both ways.
+F64_SEEDS = 8
+F64_FACTOR = 2.0
+# B2's grads against plain float32 autograd, relative to the largest
 # reference grad of each tensor.
 GRAD_REL_TOL = 1e-3
 H100_F32_FLOPS = 67e12  # float32 outside the tensor cores, H100 SXM data sheet
@@ -142,7 +149,8 @@ def main():
     from hanabi_sad_tpu_torch.models import lstm as lstm_mod
     from hanabi_sad_tpu_torch.ops import build
     from hanabi_sad_tpu_torch.ops import gather_unpack as gu
-    from hanabi_sad_tpu_torch.ops.lstm_seq import LstmSeqDiff, lstm_seq_diff, lstm_seq_kernel, lstm_seq_plain
+    from hanabi_sad_tpu_torch.ops.lstm_seq import (
+        LstmSeqDiff, lstm_bwd_kernel, lstm_seq_diff, lstm_seq_kernel, lstm_seq_plain)
     from hanabi_sad_tpu_torch.replay import prioritized as replay_mod
     from hanabi_sad_tpu_torch.tools import loaders
     from hanabi_sad_tpu_torch.train import learner, selfplay
@@ -154,11 +162,12 @@ def main():
     dev = torch.device("cuda")
 
     def reset_counts():
-        lstm_seq_kernel.launches = lstm_seq_kernel.calls = b3.launches = 0
-        LstmSeqDiff.calls = 0
+        lstm_seq_kernel.reset()
+        lstm_bwd_kernel.launches = b3.launches = LstmSeqDiff.calls = 0
 
     def counts():
-        return {"b1": lstm_seq_kernel.launches, "b2": LstmSeqDiff.calls, "b3": b3.launches}
+        return {"b1": lstm_seq_kernel.launches, **{f"b1_{k}": v for k, v in lstm_seq_kernel.launches_by_kernel.items()},
+                "b2": LstmSeqDiff.calls, "b2_bwd": lstm_bwd_kernel.launches, "b3": b3.launches}
 
     # 1. device
     t0 = time.time()
@@ -176,9 +185,9 @@ def main():
 
     # 2. build: one nvcc per source, all started together
     t0 = time.time()
-    built = build.build_many([lstm_seq_kernel.source, b3.source])
-    lstm_seq_kernel.load()
-    b3.load()
+    built = build.build_many([lstm_seq_kernel.source, lstm_bwd_kernel.source, b3.source])
+    for wrapper in (lstm_seq_kernel, lstm_bwd_kernel, b3):
+        wrapper.load()
     for source, (_, ptxas) in built.items():
         emit({"phase": "build", "source": source, "ptxas": ptxas})
     emit({"phase": "build", "seconds": round(time.time() - t0, 3)})
@@ -190,80 +199,100 @@ def main():
     L, H = len(lstm_params), lstm_params[0]["w_hh"].shape[0]
     gen = torch.Generator().manual_seed(0)
     randn = lambda *shape, scale=1.0: (scale * torch.randn(*shape, generator=gen)).to(dev)
-    b1_errors = {}
+    b1_errors, deterministic = {}, {}
     with torch.no_grad():
         for case, (T, B) in B1_CASES.items():
+            if case == "learner":
+                continue
             xs, h0, c0 = randn(T, B, H), randn(L, B, H, scale=0.5), randn(L, B, H, scale=0.5)
             out_k, (h_k, c_k) = lstm_seq_kernel(lstm_params, xs, (h0, c0))
+            again = lstm_seq_kernel(lstm_params, xs, (h0, c0))
             out_p, (h_p, c_p) = lstm_seq_plain(lstm_params, xs, (h0, c0))
             torch.cuda.synchronize()
             err = max(float((a - b).abs().max()) for a, b in ((out_k, out_p), (h_k, h_p), (c_k, c_p)))
             b1_errors[case] = err
+            deterministic[f"B1_{case}"] = all(
+                torch.equal(a, b) for a, b in zip((out_k, h_k, c_k), (again[0], *again[1])))
             emit({"phase": "check", "kernel": "B1", "case": case, "T": T, "B": B, "H": H, "L": L,
                   "max_abs_err": err, "tol": KERNEL_TOL})
             if not err <= KERNEL_TOL:
                 fail(f"B1 disagrees with its plain version at {case}: {err} > {KERNEL_TOL}")
 
-    # B2 against autograd of the plain version at the learner shape
-    T, B = 80, 128
-    xs, h0, c0 = randn(T, B, H), randn(L, B, H, scale=0.5), randn(L, B, H, scale=0.5)
-    g_out, g_h, g_c = randn(T, B, H), randn(L, B, H), randn(L, B, H)
+    # B1 and B2 at the learner shape against float64, over F64_SEEDS inputs
+    T, B = B1_CASES["learner"]
+    names = ["xs", "h0", "c0"] + [f"{k}{l}" for l in range(L) for k in ("w_ih", "w_hh", "b")]
+    outputs = ("outs", "hT", "cT")
 
-    def leaves_of(params, *tensors):
-        ps = [{k: v.detach().clone().requires_grad_(True) for k, v in p.items()} for p in params]
-        ts = [t.detach().clone().requires_grad_(True) for t in tensors]
+    def leaves_of(params, *tensors, dtype=torch.float32):
+        ps = [{k: v.detach().to(dtype).clone().requires_grad_(True) for k, v in p.items()} for p in params]
+        ts = [t.detach().to(dtype).clone().requires_grad_(True) for t in tensors]
         return ps, ts, ts + [p[k] for p in ps for k in ("w_ih", "w_hh", "b")]
 
-    def fwd_bwd(fn, ps, ts, leaves):
+    def fwd_bwd(fn, ps, ts, leaves, cot):
         outs, (h_t, c_t) = fn(ps, ts[0], (ts[1], ts[2]))
-        return (outs, h_t, c_t), torch.autograd.grad((outs, h_t, c_t), leaves, (g_out, g_h, g_c))
+        grads = torch.autograd.grad((outs, h_t, c_t), leaves, [g.to(ts[0].dtype) for g in cot])
+        return [y.detach() for y in (outs, h_t, c_t)], grads
 
-    ps_k, ts_k, leaves_k = leaves_of(lstm_params, xs, h0, c0)
-    ps_p, ts_p, leaves_p = leaves_of(lstm_params, xs, h0, c0)
-    calls = LstmSeqDiff.calls
-    ys_k, grads_k = fwd_bwd(lstm_seq_diff, ps_k, ts_k, leaves_k)
-    ys_p, grads_p = fwd_bwd(lstm_seq_plain, ps_p, ts_p, leaves_p)
-    ys_k, ys_p = [y.detach() for y in ys_k], [y.detach() for y in ys_p]
-    torch.cuda.synchronize()
-    if LstmSeqDiff.calls != calls + 1:
-        fail("B2 was not called")
-    with torch.no_grad():
-        p64 = [{k: v.double() for k, v in p.items()} for p in lstm_params]
-        o64, (h64, c64) = lstm_seq_plain(p64, xs.double(), (h0.double(), c0.double()))
-        # B2's forward is B1, and the plain version under autograd is the
-        # plain version: both bit for bit, so B2's output gap is B1's on
-        # these inputs.
-        b1_out, (b1_h, b1_c) = lstm_seq_kernel(lstm_params, xs, (h0, c0))
-        pl_out, (pl_h, pl_c) = lstm_seq_plain(lstm_params, xs, (h0, c0))
-    b2_is_b1 = all(torch.equal(a, b) for a, b in zip(ys_k, (b1_out, b1_h, b1_c)))
-    plain_is_plain = all(torch.equal(a, b) for a, b in zip(ys_p, (pl_out, pl_h, pl_c)))
-    emit({"phase": "check", "kernel": "B2", "forward_equals_B1": b2_is_b1,
-          "plain_under_autograd_equals_plain": plain_is_plain})
+    def largest_gap(a, ref, rel=False):
+        gap = float((a.double() - ref).abs().max())
+        return gap / max(float(ref.abs().max()), 1e-30) if rel else gap
+
+    worst = {"B1": {}, "B2": {}, "plain": {}, "B2_grad": {}, "plain_grad": {}}
+    b2_grad_rel, b2_is_b1, grads_identical = {}, True, True
+    for seed in range(F64_SEEDS):
+        g = torch.Generator().manual_seed(seed)
+        r = lambda *shape, scale=1.0: (scale * torch.randn(*shape, generator=g)).to(dev)
+        xs, h0, c0 = r(T, B, H), r(L, B, H, scale=0.5), r(L, B, H, scale=0.5)
+        cot = (r(T, B, H), r(L, B, H), r(L, B, H))
+        with torch.no_grad():
+            b1_out, (b1_h, b1_c) = lstm_seq_kernel(lstm_params, xs, (h0, c0))
+        calls = LstmSeqDiff.calls
+        ys_k, grads_k = fwd_bwd(lstm_seq_diff, *leaves_of(lstm_params, xs, h0, c0), cot)
+        if LstmSeqDiff.calls != calls + 1:
+            fail("B2 was not called")
+        ys_p, grads_p = fwd_bwd(lstm_seq_plain, *leaves_of(lstm_params, xs, h0, c0), cot)
+        ys_64, grads_64 = fwd_bwd(lstm_seq_plain, *leaves_of(lstm_params, xs, h0, c0, dtype=torch.float64), cot)
+        if seed == 0:
+            ys_k2, grads_k2 = fwd_bwd(lstm_seq_diff, *leaves_of(lstm_params, xs, h0, c0), cot)
+            with torch.no_grad():
+                b1_again = lstm_seq_kernel(lstm_params, xs, (h0, c0))
+            deterministic["B1_learner"] = all(
+                torch.equal(a, b) for a, b in zip((b1_out, b1_h, b1_c), (b1_again[0], *b1_again[1])))
+            deterministic["B2_learner"] = all(torch.equal(a, b) for a, b in zip(ys_k + list(grads_k),
+                                                                                  ys_k2 + list(grads_k2)))
+        torch.cuda.synchronize()
+        b2_is_b1 &= all(torch.equal(a, b) for a, b in zip(ys_k, (b1_out, b1_h, b1_c)))
+        grads_identical &= all(torch.equal(a, b) for a, b in zip(grads_k, grads_p))
+        for name, b1_y, k_y, p_y, ref in zip(outputs, (b1_out, b1_h, b1_c), ys_k, ys_p, ys_64):
+            for who, y in (("B1", b1_y), ("B2", k_y), ("plain", p_y)):
+                worst[who][name] = max(worst[who].get(name, 0.0), largest_gap(y, ref))
+        for name, gk, gp, ref in zip(names, grads_k, grads_p, grads_64):
+            worst["B2_grad"][name] = max(worst["B2_grad"].get(name, 0.0), largest_gap(gk, ref, rel=True))
+            worst["plain_grad"][name] = max(worst["plain_grad"].get(name, 0.0), largest_gap(gp, ref, rel=True))
+            b2_grad_rel[name] = max(b2_grad_rel.get(name, 0.0), largest_gap(gk, gp.double(), rel=True))
+        del ys_k, grads_k, ys_p, grads_p, ys_64, grads_64
+    b1_errors["learner"] = max(worst["B1"].values())
+    ratio = lambda who, ref_who, n: worst[who][n] / max(worst[ref_who][n], 1e-30)
+    per_output = {who: {n: ratio(who, "plain", n) for n in outputs} for who in ("B1", "B2")}
+    f64_ratio = {who: max(worst[who].values()) / max(worst["plain"].values()) for who in ("B1", "B2")}
+    f64_ratio.update({f"B2_grad.{n}": ratio("B2_grad", "plain_grad", n) for n in names})
+    emit({"phase": "check", "kernel": "B1 and B2", "T": T, "B": B, "H": H, "L": L, "seeds": F64_SEEDS,
+          "largest_gap_to_f64": worst, "ratio_to_plain": f64_ratio, "factor": F64_FACTOR,
+          "ratio_to_plain_per_output": per_output,
+          "b2_forward_equals_B1": b2_is_b1, "b2_grad_rel_err_to_plain": b2_grad_rel,
+          "grad_rel_tol": GRAD_REL_TOL, "grads_identical_to_plain": grads_identical,
+          "deterministic": deterministic})
     if not b2_is_b1:
         fail("B2's forward differs from B1 on the same inputs")
-    b2_out = {}
-    for name, a, b, r in zip(("outs", "hT", "cT"), ys_k, ys_p, (o64, h64, c64)):
-        max_ref = float(b.abs().max())
-        b2_out[name] = {"max_abs_err": float((a - b).abs().max()), "max_abs_ref": max_ref,
-                        "tol": B2_OUT_TOL[name] * (max_ref if name == "cT" else 1.0),
-                        "b2_vs_f64": float((a.double() - r).abs().max()),
-                        "plain_vs_f64": float((b.double() - r).abs().max())}
-    b2_out_err = max(v["max_abs_err"] for v in b2_out.values())
-    names = ["xs", "h0", "c0"] + [f"{k}{l}" for l in range(L) for k in ("w_ih", "w_hh", "b")]
-    b2_grad_err, b2_grad_rel = {}, {}
-    for name, gk, gp in zip(names, grads_k, grads_p):
-        b2_grad_err[name] = float((gk - gp).abs().max())
-        b2_grad_rel[name] = b2_grad_err[name] / max(float(gp.abs().max()), 1e-30)
-    grads_identical = all(torch.equal(gk, gp) for gk, gp in zip(grads_k, grads_p))
-    emit({"phase": "check", "kernel": "B2", "T": T, "B": B, "H": H, "L": L,
-          "outputs": b2_out,
-          "grad_max_abs_err": b2_grad_err, "grad_rel_err": b2_grad_rel, "grad_rel_tol": GRAD_REL_TOL,
-          "grads_identical": grads_identical})
-    if not all(v["max_abs_err"] <= v["tol"] for v in b2_out.values()):
-        fail(f"B2 outputs disagree with the plain version: {b2_out}")
+    bad = {k: v for k, v in f64_ratio.items() if not v <= F64_FACTOR}
+    if bad:
+        fail(f"further than {F64_FACTOR}x the plain float32 version from float64: {bad}")
     bad = {k: v for k, v in b2_grad_rel.items() if not v <= GRAD_REL_TOL}
     if bad:
         fail(f"B2 grads disagree with autograd of the plain version: {bad}")
+    if not all(deterministic.values()):
+        fail(f"two calls on the same inputs gave different bits: {deterministic}")
+    b2_max_err = max(max(worst["B2"].values()), *b2_grad_rel.values())
 
     # B3 on random bytes, indices out of range clamped by both versions
     packed = torch.randint(0, 256, (50, 80, 2, 110), dtype=torch.uint8, generator=gen).to(dev)
@@ -280,6 +309,14 @@ def main():
             fail(f"B3 disagrees with its plain version on {case}")
 
     b3_check("random bytes, indices out of range", packed, torch.tensor([3, 49, 3, -2, 60, 0], device=dev))
+    # indices beyond both ends and negative ones read as JAX reads them:
+    # [-cap, -1] counts from the end, the rest is clamped
+    cap = packed.shape[0]
+    idx = torch.tensor([-cap - 2, -cap, -1, 0, cap - 1, cap, cap + 3], device=dev)
+    rows = torch.tensor([0, 0, cap - 1, 0, cap - 1, cap - 1, cap - 1], device=dev)
+    b3_check("indices out of range, as JAX reads them", packed, idx)
+    if not torch.equal(b3(packed, idx), gu.gather_unpack_plain(packed, rows)):
+        fail("B3 does not read the rows JAX reads at indices out of range")
     emit({"phase": "check", "seconds": round(time.time() - t0, 3)})
 
     # 4. timing
@@ -297,32 +334,40 @@ def main():
         xs, h0, c0 = randn(T, B, H), randn(L, B, H, scale=0.5), randn(L, B, H, scale=0.5)
         with torch.no_grad():
             lib_err = float((cudnn(xs, (h0, c0))[0] - lstm_seq_plain(lstm_params, xs, (h0, c0))[0]).abs().max())
+            reset_counts()
+            lstm_seq_kernel(lstm_params, xs, (h0, c0))
+            per_call = counts()
             ms = cuda_ms(torch, lambda: lstm_seq_kernel(lstm_params, xs, (h0, c0)))
             plain_ms = cuda_ms(torch, lambda: lstm_seq_plain(lstm_params, xs, (h0, c0)))
             library_ms = cuda_ms(torch, lambda: cudnn(xs, (h0, c0)))
         b_ms, b_by = bound(lstm_flops(T, B, H, L), 4.0 * lstm_words(T, B, H, L))
         timing[f"B1_{case}"] = {"T": T, "B": B, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                                "library_max_abs_err": lib_err, "bound_ms": b_ms, "bound_by": b_by}
+                                "library_max_abs_err": lib_err, "bound_ms": b_ms, "bound_by": b_by,
+                                "launches_per_call": {k: v for k, v in per_call.items() if k.startswith("b1")}}
 
     # B2 forward + backward at the learner shape; its least work is the
     # forward and the two products of the backward, 3x the forward's
-    # operations (this design recomputes the forward, 4x).
-    T, B = 80, 128
+    # operations.
+    T, B = B1_CASES["learner"]
+    cot = (randn(T, B, H), randn(L, B, H), randn(L, B, H))
     ps_k, ts_k, leaves_k = leaves_of(lstm_params, xs, h0, c0)
     cudnn_leaves = [t.detach().clone().requires_grad_(True) for t in (xs, h0, c0)]
 
     def cudnn_fwd_bwd():
         out, (h_t, c_t) = cudnn(cudnn_leaves[0], (cudnn_leaves[1], cudnn_leaves[2]))
-        return torch.autograd.grad((out, h_t, c_t), cudnn_leaves + list(cudnn.parameters()), (g_out, g_h, g_c))
+        return torch.autograd.grad((out, h_t, c_t), cudnn_leaves + list(cudnn.parameters()), cot)
 
-    ms = cuda_ms(torch, lambda: fwd_bwd(lstm_seq_diff, ps_k, ts_k, leaves_k), iters=10, warmup=2)
-    plain_ms = cuda_ms(torch, lambda: fwd_bwd(lstm_seq_plain, ps_k, ts_k, leaves_k), iters=10, warmup=2)
+    reset_counts()
+    fwd_bwd(lstm_seq_diff, ps_k, ts_k, leaves_k, cot)
+    per_call = counts()
+    ms = cuda_ms(torch, lambda: fwd_bwd(lstm_seq_diff, ps_k, ts_k, leaves_k, cot), iters=10, warmup=2)
+    plain_ms = cuda_ms(torch, lambda: fwd_bwd(lstm_seq_plain, ps_k, ts_k, leaves_k, cot), iters=10, warmup=2)
     library_ms = cuda_ms(torch, cudnn_fwd_bwd, iters=10, warmup=2)
     words = 2 * lstm_words(T, B, H, L)  # the forward's inputs and outputs, and a grad of each
     b_ms, b_by = bound(3 * lstm_flops(T, B, H, L), 4.0 * words)
     timing["B2_learner"] = {"T": T, "B": B, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                             "bound_ms": b_ms, "bound_by": b_by,
-                            "recompute_bound_ms": bound(4 * lstm_flops(T, B, H, L), 4.0 * words)[0]}
+                            "launches_per_call": {k: v for k, v in per_call.items() if k != "b3"}}
 
     # B3 at the flagship shape: 64 of 65,536 episodes of [80, 2, 110] bytes
     cap, Bs = 65536, 64
@@ -389,8 +434,13 @@ def main():
              "hidden": tcfg.rnn_hid_dim, "replay_capacity": tcfg.replay_buffer_size,
              "updates_per_chunk": tcfg.num_update_per_chunk}
     T, U = tcfg.max_len, tcfg.num_update_per_chunk
-    expect_collect = {"b1": T * 2 * L, "b2": 0, "b3": 0}  # act: 2 nets x L layers per step
-    expect_train = {"b1": T * 2 * L + U * 2 * T * L, "b2": U, "b3": U}
+    # act: 2 nets x L gates launches per step (T = 1); each update: the
+    # target's forward and B2's forward, 2 L launches each (T > 1), and B2's
+    # backward, L launches
+    rollout = T * 2 * L
+    expect_collect = {"b1": rollout, "b1_gates": rollout, "b1_recurrence": 0, "b2": 0, "b2_bwd": 0, "b3": 0}
+    expect_train = {"b1": rollout + U * 4 * L, "b1_gates": rollout + U * 2 * L, "b1_recurrence": U * 2 * L,
+                    "b2": U, "b2_bwd": U * L, "b3": U}
 
     reset_counts()
     torch.cuda.synchronize()
@@ -413,7 +463,7 @@ def main():
     idx[32:40] = idx[0:8]
     b3_check("real replay after one collect chunk", state.replay.packed, idx)
 
-    totals = {"b1": 0, "b2": 0, "b3": 0}
+    totals = dict.fromkeys(expect_train, 0)
     train_walls = []
     for chunk in range(3):
         reset_counts()
@@ -478,14 +528,16 @@ def main():
     emit({"kernels": [
         {"name": "lstm_seq (B1)", "route": "cuda", "source": "hanabi_sad_tpu_torch/ops/csrc/lstm_seq.cu",
          "replaces": "hanabi_sad_tpu/ops/experimental/pallas_lstm.py:166",
-         "launches": totals["b1"], "max_abs_err": max(b1_errors.values()), "ms": b1["ms"],
+         "launches": totals["b1"], "launches_by_kernel": {"gates": totals["b1_gates"],
+                                                          "recurrence": totals["b1_recurrence"]},
+         "max_abs_err": max(b1_errors.values()), "ms": b1["ms"],
          "plain_ms": b1["plain_ms"], "bound_ms": b1["bound_ms"], "bound_by": b1["bound_by"],
          "library_ms": b1["library_ms"], "shape": "T=80 B=128 H=512 L=2",
          "eval_shape": timing["B1_eval"], "eval_launches": eval_counts["b1"],
          "rollout_shape": timing["B1_rollout"]},
-        {"name": "lstm_seq_diff (B2)", "route": "cuda", "source": "hanabi_sad_tpu_torch/ops/lstm_seq.py",
+        {"name": "lstm_seq_diff (B2)", "route": "cuda", "source": "hanabi_sad_tpu_torch/ops/csrc/lstm_bwd.cu",
          "replaces": "hanabi_sad_tpu/ops/experimental/pallas_lstm.py:212",
-         "launches": totals["b2"], "max_abs_err": max(b2_out_err, *b2_grad_err.values()), "ms": b2["ms"],
+         "launches": totals["b2_bwd"], "calls": totals["b2"], "max_abs_err": b2_max_err, "ms": b2["ms"],
          "plain_ms": b2["plain_ms"], "bound_ms": b2["bound_ms"], "bound_by": b2["bound_by"],
          "library_ms": b2["library_ms"], "shape": "T=80 B=128 H=512 L=2, forward + backward"},
         {"name": "gather_unpack (B3)", "route": "cuda",

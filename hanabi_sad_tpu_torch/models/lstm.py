@@ -4,8 +4,8 @@ Gate layout is torch-compatible (i, f, g, o order, separate input/hidden
 weights, one collapsed bias). `lstm_seq` (and `lstm_step` through it) routes:
 
   * CUDA tensors, grad enabled and some input or weight requiring grad:
-    kernel B2 (`ops/lstm_seq.py:lstm_seq_diff`), B1's forward with the plain
-    version's exact backward;
+    kernel B2 (`ops/lstm_seq.py:lstm_seq_diff`), B1's forward keeping its
+    gates, and the BPTT backward kernel;
   * other CUDA tensors: kernel B1;
   * CPU tensors: the plain `_cell` loop, differentiated by autograd.
 """

@@ -2,9 +2,9 @@
 loaded with ctypes. Several sources build in parallel, one nvcc each.
 
 A library is built at first use into `ops/_build/` (git-ignored), named after
-a hash of its source and the flags. It is written under a temporary name and
-moved into place with os.replace, so a build that is cut off leaves neither
-a half-written library nor a lock behind.
+a hash of its source, the shared headers and the flags. It is written under
+a temporary name and moved into place with os.replace, so a build that is
+cut off leaves neither a half-written library nor a lock behind.
 """
 
 from __future__ import annotations
@@ -43,8 +43,14 @@ def find_nvcc() -> str:
 
 
 def _lib_path(source: str) -> Path:
+    """The library's path, named after a hash of the source, the headers of
+    csrc/ (any source may include them) and the flags."""
     src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{src.stem}_{digest}.so"
 
 

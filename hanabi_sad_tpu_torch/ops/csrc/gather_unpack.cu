@@ -19,9 +19,10 @@
 // consecutive bytes and writes 1 KB of consecutive floats. The output base
 // of every byte is a multiple of 32 bytes, so the float4 stores are aligned.
 //
-// Index bounds: an index outside [0, cap) is clamped into it (a negative
-// index reads episode 0, one past the end reads episode cap - 1), as the
-// JAX gather clamps; the kernel never reads outside the buffer. The sampler
+// Index bounds, as JAX's `packed[idx]` reads them: an index in [-cap, -1]
+// counts from the end (cap + idx); what still lies outside [0, cap) is
+// clamped into it (-cap - 2 reads episode 0, cap + 3 reads episode cap - 1).
+// The kernel never reads outside the buffer. The sampler
 // (replay/prioritized.py:sample_indices) never produces such an index.
 //
 // Bound: at the flagship shape (B = 64 of cap = 65,536, T = 80, Pi = 2,
@@ -41,6 +42,7 @@ __global__ void __launch_bounds__(THREADS) gather_unpack_kernel(
   const long long e = (long long)blockIdx.x * THREADS + threadIdx.x;
   if (e >= episode_bytes) return;
   long long src = idx[blockIdx.y];
+  if (src < 0) src += cap;
   src = src < 0 ? 0 : (src >= cap ? cap - 1 : src);
   const unsigned v = packed[src * episode_bytes + e];
   const long long o = 2 * ((long long)blockIdx.y * episode_bytes + e);

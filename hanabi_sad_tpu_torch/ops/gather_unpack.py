@@ -9,8 +9,9 @@ falls back.
 
 packed: [cap, T, Pi, NB] uint8; idx: [B] int64 ->
 [B, T, Pi, NB * 8] float32 of 0/1, little-endian bits (bit k of byte j ->
-feature 8j + k). Callers slice off the padding bits. An index outside
-[0, cap) is clamped into it, by both versions.
+feature 8j + k). Callers slice off the padding bits. Indices follow the
+JAX gather (`jax_index`): an index in [-cap, -1] counts from the end, and
+what still lies outside [0, cap) is clamped into it, by both versions.
 """
 
 from __future__ import annotations
@@ -28,10 +29,16 @@ def _check_idx(idx: torch.Tensor):
         raise ValueError(f"idx must be [B] int64, got {tuple(idx.shape)} {idx.dtype}")
 
 
+def jax_index(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """The row that JAX's `x[idx]` reads from an axis of length n: an index
+    in [-n, -1] becomes n + idx, then everything is clamped into [0, n)."""
+    return torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)
+
+
 def gather_unpack_plain(packed: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """The plain version: `unpack_bits(packed[idx])` with idx clamped."""
+    """The plain version: `unpack_bits(packed[jax_index(idx)])`."""
     _check_idx(idx)
-    idx = idx.clamp(0, packed.shape[0] - 1)
+    idx = jax_index(idx, packed.shape[0])
     return unpack_bits(packed[idx], packed.shape[-1] * 8)
 
 

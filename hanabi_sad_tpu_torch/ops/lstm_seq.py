@@ -1,19 +1,27 @@
 """Kernel B1, the multi-layer float32 LSTM over a sequence, with its plain
-PyTorch version; and B2, the same LSTM made differentiable.
+PyTorch version; and B2, the same LSTM made differentiable, with a backward
+kernel and its plain version.
 
 B1 is the counterpart of `hanabi_sad_tpu/ops/experimental/pallas_lstm.py:
 lstm_seq_pallas` and of the scan in `hanabi_sad_tpu/models/lstm.py`.
-`lstm_seq` launches the CUDA kernel of `csrc/lstm_seq.cu` for a CUDA tensor
+`lstm_seq` launches the CUDA kernels of `csrc/lstm_seq.cu` for a CUDA tensor
 and runs `lstm_seq_plain` for a CPU tensor; for a CUDA tensor it launches the
-kernel or raises, it never falls back.
+kernels or raises, it never falls back. A call is L launches at T = 1 (the
+gates kernel with the cell update, per layer) and 2 L at T > 1 (per layer,
+the input projection for all T steps, then one persistent launch over the
+steps).
 
 B2 (`LstmSeqDiff`, called through `lstm_seq_diff`) is the counterpart of
-`pallas_lstm.py:lstm_seq_pallas_diff`: its forward is `lstm_seq` (B1 on the
-card), its backward recomputes the forward with `lstm_seq_plain` under
-autograd and takes the vector-Jacobian product of that, as the JAX package's
-`_diff_bwd` takes `jax.vjp` of its scan. So the gradients are those of the
-plain version, exactly; the JAX package has no backward kernel, and neither
-has the port yet.
+`pallas_lstm.py:lstm_seq_pallas_diff`. Its forward is B1 (`lstm_seq_plain` on
+the CPU) told to keep what the backward needs (`Saved`): each layer's gate
+activations i, f, g, o, its cell states and its h sequence; the outputs are
+the same bits as without. Its backward (`lstm_seq_bwd`) walks the layers top
+down: the recurrence of backpropagation through time runs in the kernel of
+`csrc/lstm_bwd.cu` (`lstm_bwd_recurrence_plain` on the CPU), and the
+products that do not recur (dW_ih, dW_hh, db and dX) are batched matrix
+products over all steps at once, as the JAX package leaves them to XLA in the
+scan's VJP. Nothing recomputes the forward. `lstm_seq_bwd_plain` is the same
+algorithm in plain PyTorch from the same saved tensors.
 
 Layouts are the JAX package's: params is a list of per-layer
 {"w_ih": [in, 4H], "w_hh": [H, 4H], "b": [4H]} (one collapsed bias, gate
@@ -23,7 +31,7 @@ order i, f, g, o); xs [T, B, in]; hidden (h, c) each [L, B, H].
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -33,70 +41,118 @@ LSTMParams = List[Dict[str, torch.Tensor]]
 Hidden = Tuple[torch.Tensor, torch.Tensor]
 
 
-def _cell(p: Dict[str, torch.Tensor], x: torch.Tensor, h: torch.Tensor, c: torch.Tensor):
-    """One LSTM cell step. x: [B, in], h/c: [B, H]."""
+class Saved(NamedTuple):
+    """What B2's forward keeps for its backward, per layer."""
+
+    act: List[torch.Tensor]  # [T, B, 4H]: sigmoid(i), sigmoid(f), tanh(g), sigmoid(o)
+    cseq: List[torch.Tensor]  # [T, B, H]: c_t
+    hseq: List[torch.Tensor]  # [T, B, H]: h_t (the top layer's is the output)
+
+
+def _cell_act(p: Dict[str, torch.Tensor], x: torch.Tensor, h: torch.Tensor, c: torch.Tensor):
+    """One LSTM cell step. x: [B, in], h/c: [B, H]. Returns (h, c, the
+    activations [B, 4H])."""
     gates = x @ p["w_ih"] + h @ p["w_hh"] + p["b"]
     i, f, g, o = gates.chunk(4, dim=-1)
-    c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-    h_new = torch.sigmoid(o) * torch.tanh(c_new)
+    i, f, g, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
+    c_new = f * c + i * g
+    h_new = o * torch.tanh(c_new)
+    return h_new, c_new, (i, f, g, o)
+
+
+def _cell(p: Dict[str, torch.Tensor], x: torch.Tensor, h: torch.Tensor, c: torch.Tensor):
+    """One LSTM cell step. x: [B, in], h/c: [B, H]."""
+    h_new, c_new, _ = _cell_act(p, x, h, c)
     return h_new, c_new
 
 
-def lstm_seq_plain(params: LSTMParams, xs: torch.Tensor, hidden: Hidden):
+def lstm_seq_plain(params: LSTMParams, xs: torch.Tensor, hidden: Hidden, save: bool = False):
     """The plain version: a Python loop over time and layers of `_cell`.
-    Returns (outs [T, B, H], (hT, cT) [L, B, H])."""
+    Returns (outs [T, B, H], (hT, cT) [L, B, H]), and `Saved` as a third
+    element if `save`."""
     h = list(hidden[0].unbind(0))
     c = list(hidden[1].unbind(0))
+    acts, cs, hs = ([[] for _ in params] for _ in range(3))
     outs = []
     for x in xs.unbind(0):
         for layer, p in enumerate(params):
-            h[layer], c[layer] = _cell(p, x, h[layer], c[layer])
+            h[layer], c[layer], a = _cell_act(p, x, h[layer], c[layer])
+            if save:
+                acts[layer].append(torch.cat(a, dim=-1))
+                cs[layer].append(c[layer])
+                hs[layer].append(h[layer])
             x = h[layer]
         outs.append(x)
-    return torch.stack(outs), (torch.stack(h), torch.stack(c))
+    result = (torch.stack(outs), (torch.stack(h), torch.stack(c)))
+    if not save:
+        return result
+    stack = lambda seqs: [torch.stack(s) for s in seqs]
+    return result + (Saved(stack(acts), stack(cs), stack(hs)),)
+
+
+def _check_cuda(tensors, what: str):
+    device = tensors[0].device
+    for t in tensors:
+        if not t.is_cuda:
+            raise ValueError(f"{what} kernel needs CUDA tensors")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{what} kernel takes float32 only, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what} kernel needs contiguous tensors")
+        if t.device != device:
+            raise ValueError(f"{what} kernel needs every tensor on one device")
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
 
 
 class LstmSeqKernel:
-    """Wrapper of the CUDA kernel. `launches` counts kernel launches (T * L
-    per call), `calls` counts calls that launched it; both are plain integers
+    """Wrapper of B1's CUDA kernels. `launches` counts kernel launches (L per
+    call at T = 1, 2 L at T > 1), `launches_by_kernel` splits them into
+    "gates" and "recurrence", `calls` counts calls; all are plain integers
     that a caller may reset."""
 
     source = "lstm_seq.cu"
 
     def __init__(self):
         self.launches = 0
+        self.launches_by_kernel = {"gates": 0, "recurrence": 0}
         self.calls = 0
-        self._fn = None
+        self._lib = None
         self.ptxas: List[str] = []
 
     def load(self):
         """Build (at first use) and bind the library."""
-        if self._fn is None:
+        if self._lib is None:
             lib, self.ptxas = build.build(self.source)
-            fn = lib.lstm_cell_f32
-            fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            lib.lstm_cell_h_multiple.restype = ctypes.c_int
-            self._h_multiple = lib.lstm_cell_h_multiple()
-            self._fn = fn
-        return self._fn
+            p, i = ctypes.c_void_p, ctypes.c_int
+            lib.lstm_gates_f32.argtypes = [p, p, i, p, p, i] + [p] * 8 + [i, i, p]
+            lib.lstm_gates_f32.restype = i
+            lib.lstm_recurrence_f32.argtypes = [p] * 9 + [i, i, i, p]
+            lib.lstm_recurrence_f32.restype = i
+            lib.lstm_h_multiple.restype = i
+            self._h_multiple = lib.lstm_h_multiple()
+            self._lib = lib
+        return self._lib
 
-    def __call__(self, params: LSTMParams, xs: torch.Tensor, hidden: Hidden):
+    def reset(self):
+        self.launches = self.calls = 0
+        self.launches_by_kernel = {k: 0 for k in self.launches_by_kernel}
+
+    def _launched(self, kernel: str, err: int):
+        if err != 0:
+            raise RuntimeError(f"lstm_{kernel}_f32 launch failed with CUDA error {err}")
+        self.launches += 1
+        self.launches_by_kernel[kernel] += 1
+
+    def __call__(self, params: LSTMParams, xs: torch.Tensor, hidden: Hidden, save: bool = False):
         h0, c0 = hidden
         if xs.dim() != 3 or xs.shape[0] < 1 or xs.shape[1] < 1:
             raise ValueError(f"xs must be [T, B, H] with T, B >= 1, got {tuple(xs.shape)}")
         T, B, H = xs.shape
         L = len(params)
-        tensors = [xs, h0, c0] + [p[k] for p in params for k in ("w_ih", "w_hh", "b")]
-        for t in tensors:
-            if not t.is_cuda:
-                raise ValueError("lstm_seq kernel needs CUDA tensors")
-            if t.dtype != torch.float32:
-                raise ValueError(f"lstm_seq kernel takes float32 only, got {t.dtype}")
-            if not t.is_contiguous():
-                raise ValueError("lstm_seq kernel needs contiguous tensors")
-            if t.device != xs.device:
-                raise ValueError("lstm_seq kernel needs every tensor on one device")
+        _check_cuda([xs, h0, c0] + _flatten(params), "lstm_seq")
         if h0.shape != (L, B, H) or c0.shape != (L, B, H):
             raise ValueError(f"hidden must be [{L}, {B}, {H}], got {tuple(h0.shape)}, {tuple(c0.shape)}")
         for p in params:
@@ -104,81 +160,223 @@ class LstmSeqKernel:
                 raise ValueError(f"lstm_seq kernel needs in_dim == hid_dim: w_ih {tuple(p['w_ih'].shape)}")
             if p["w_hh"].shape != (H, 4 * H) or p["b"].shape != (4 * H,):
                 raise ValueError("w_hh must be [H, 4H] and b [4H]")
-        fn = self.load()
+        lib = self.load()
         if H % self._h_multiple != 0:
             raise ValueError(f"lstm_seq kernel needs H % {self._h_multiple} == 0, got H={H}")
 
         with torch.cuda.device(xs.device):
             stream = torch.cuda.current_stream().cuda_stream
-            outs = torch.empty((T, B, H), dtype=xs.dtype, device=xs.device)
-            slots = min(T, 2)
-            hbuf = torch.empty((slots, L, B, H), dtype=xs.dtype, device=xs.device)
-            cbuf = torch.empty((slots, L, B, H), dtype=xs.dtype, device=xs.device)
-            for t in range(T):
-                cur, prev = t % 2, (t - 1) % 2
-                for layer, p in enumerate(params):
-                    x = xs[t] if layer == 0 else hbuf[cur, layer - 1]
-                    h_prev = h0[layer] if t == 0 else hbuf[prev, layer]
-                    c_prev = c0[layer] if t == 0 else cbuf[prev, layer]
-                    y = outs[t].data_ptr() if layer == L - 1 else None
-                    err = fn(
-                        x.data_ptr(), h_prev.data_ptr(), c_prev.data_ptr(),
-                        p["w_ih"].data_ptr(), p["w_hh"].data_ptr(), p["b"].data_ptr(),
-                        hbuf[cur, layer].data_ptr(), cbuf[cur, layer].data_ptr(), y,
-                        B, H, stream,
+            new = lambda *shape: torch.empty(shape, dtype=xs.dtype, device=xs.device)
+            outs, h_t, c_t = new(T, B, H), new(L, B, H), new(L, B, H)
+            hseq = [new(T, B, H) for _ in range(L - 1)] + [outs]
+            act = new(L, T, B, 4 * H) if save else None
+            cseq = new(L, T, B, H) if save else None
+            gx = new(T * B, 4 * H) if T > 1 else None
+            for layer, p in enumerate(params):
+                x = xs if layer == 0 else hseq[layer - 1]
+                a_l = act[layer] if save else None
+                c_l = cseq[layer] if save else None
+                if T == 1:
+                    err = lib.lstm_gates_f32(
+                        x.data_ptr(), p["w_ih"].data_ptr(), H, h0[layer].data_ptr(), p["w_hh"].data_ptr(), H,
+                        p["b"].data_ptr(), c0[layer].data_ptr(), None, h_t[layer].data_ptr(),
+                        c_t[layer].data_ptr(), hseq[layer].data_ptr(), _ptr(a_l), _ptr(c_l), B, H, stream,
                     )
-                    if err != 0:
-                        raise RuntimeError(f"lstm_cell_f32 launch failed with CUDA error {err}")
-                    self.launches += 1
+                    self._launched("gates", err)
+                    continue
+                err = lib.lstm_gates_f32(
+                    x.data_ptr(), p["w_ih"].data_ptr(), H, None, None, 0, p["b"].data_ptr(), None,
+                    gx.data_ptr(), None, None, None, None, None, T * B, H, stream,
+                )
+                self._launched("gates", err)
+                err = lib.lstm_recurrence_f32(
+                    gx.data_ptr(), h0[layer].data_ptr(), c0[layer].data_ptr(), p["w_hh"].data_ptr(),
+                    hseq[layer].data_ptr(), h_t[layer].data_ptr(), c_t[layer].data_ptr(),
+                    _ptr(a_l), _ptr(c_l), T, B, H, stream,
+                )
+                self._launched("recurrence", err)
             self.calls += 1
-        last = (T - 1) % 2
-        return outs, (hbuf[last], cbuf[last])
+        if not save:
+            return outs, (h_t, c_t)
+        return outs, (h_t, c_t), Saved(list(act.unbind(0)), list(cseq.unbind(0)), hseq)
 
 
 lstm_seq_kernel = LstmSeqKernel()
 
 
 def lstm_seq(params: LSTMParams, xs: torch.Tensor, hidden: Hidden):
-    """Sequence LSTM: the CUDA kernel for a CUDA tensor, the plain version for
-    a CPU tensor. Returns (outs [T, B, H], (hT, cT) [L, B, H])."""
+    """Sequence LSTM: the CUDA kernels for a CUDA tensor, the plain version
+    for a CPU tensor. Returns (outs [T, B, H], (hT, cT) [L, B, H])."""
     if xs.is_cuda:
         return lstm_seq_kernel(params, xs, hidden)
     return lstm_seq_plain(params, xs, hidden)
+
+
+def lstm_bwd_recurrence_plain(dout, gh, gc, act, cseq, c0, w_hh):
+    """The plain version of the backward kernel: BPTT through one layer.
+    dout [T, B, H] (the grad of the layer's h sequence), gh, gc [B, H] or
+    None (the grads of hT, cT), act [T, B, 4H], cseq [T, B, H], c0 [B, H],
+    w_hh [H, 4H]. Returns (dG [T, B, 4H], the grads of the gate
+    pre-activations; dh0 [B, H]; dc0 [B, H])."""
+    T = dout.shape[0]
+    dg = dout.new_empty(dout.shape[:-1] + (act.shape[-1],))
+    carry = gc if gc is not None else torch.zeros_like(dout[0])
+    for t in reversed(range(T)):
+        rec = gh if t == T - 1 else dg[t + 1] @ w_hh.t()
+        dh = dout[t] if rec is None else dout[t] + rec
+        i, f, g, o = act[t].chunk(4, dim=-1)
+        tc = torch.tanh(cseq[t])
+        c_prev = cseq[t - 1] if t > 0 else c0
+        dc = dh * o * (1 - tc * tc) + carry
+        dg[t] = torch.cat([dc * g * i * (1 - i), dc * c_prev * f * (1 - f), dc * i * (1 - g * g),
+                           dh * tc * o * (1 - o)], dim=-1)
+        carry = dc * f
+    return dg, dg[0] @ w_hh.t(), carry
+
+
+class LstmBwdKernel:
+    """Wrapper of B2's backward kernel (`csrc/lstm_bwd.cu`), one launch per
+    layer; called as `lstm_bwd_recurrence_plain` is. `launches` counts
+    kernel launches; a caller may reset it."""
+
+    source = "lstm_bwd.cu"
+
+    def __init__(self):
+        self.launches = 0
+        self._fn = None
+        self.ptxas: List[str] = []
+
+    def load(self):
+        """Build (at first use) and bind the library."""
+        if self._fn is None:
+            lib, self.ptxas = build.build(self.source)
+            fn = lib.lstm_bwd_f32
+            fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        return self._fn
+
+    def __call__(self, dout, gh, gc, act, cseq, c0, w_hh):
+        T, B, H = dout.shape
+        _check_cuda([dout, act, cseq, c0, w_hh] + [g for g in (gh, gc) if g is not None], "lstm_bwd")
+        shapes = {"act": (act, (T, B, 4 * H)), "cseq": (cseq, (T, B, H)), "c0": (c0, (B, H)),
+                  "w_hh": (w_hh, (H, 4 * H)), "gh": (gh, (B, H)), "gc": (gc, (B, H))}
+        for name, (t, shape) in shapes.items():
+            if t is not None and tuple(t.shape) != shape:
+                raise ValueError(f"lstm_bwd kernel: {name} must be {list(shape)}, got {list(t.shape)}")
+        fn = self.load()
+        with torch.cuda.device(dout.device):
+            dg = torch.empty((T, B, 4 * H), dtype=dout.dtype, device=dout.device)
+            dh0, dc0 = torch.empty_like(c0), torch.empty_like(c0)
+            err = fn(
+                dout.data_ptr(), _ptr(gh), _ptr(gc), act.data_ptr(), cseq.data_ptr(), c0.data_ptr(),
+                w_hh.data_ptr(), dg.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), T, B, H,
+                torch.cuda.current_stream().cuda_stream,
+            )
+            if err != 0:
+                raise RuntimeError(f"lstm_bwd_f32 launch failed with CUDA error {err}")
+            self.launches += 1
+        return dg, dh0, dc0
+
+
+lstm_bwd_kernel = LstmBwdKernel()
+
+
+def _dx(dg: torch.Tensor, w_ih: torch.Tensor) -> torch.Tensor:
+    """dX = dG . w_ih^T for dG [T, B, 4H], its K = 4H cut into slices of 256
+    whose products are added in slice order: one product over all 4H and
+    all T * B rows rounded further from float64 than the plain version's
+    per-step products on the card."""
+    T, B, G = dg.shape
+    S = G // 256 if G % 256 == 0 else 1
+    parts = torch.bmm(dg.reshape(T * B, S, G // S).transpose(0, 1), w_ih.t().reshape(S, G // S, -1))
+    return parts.sum(0).reshape(T, B, -1)
+
+
+def _lstm_seq_bwd(recurrence, params, xs, hidden, saved: Saved, g_outs, g_h, g_c, needs=None):
+    """The backward of the sequence LSTM, layer by layer from the top: the
+    recurrence gives dG, then dW_ih = sum_t X_t^T dG_t, dW_hh = sum_t
+    H_{t-1}^T dG_t and db = sum_t sum_b dG_t (a product per step, then a sum
+    over the steps, as the plain version's autograd adds them), and dX by
+    `_dx`. Every reduction runs in a fixed order. needs: which of (xs, h0,
+    c0, w_ih_0, w_hh_0, b_0, ...) want a grad (all if None). Returns their
+    grads in that order, None where not wanted."""
+    h0, c0 = hidden
+    L = len(params)
+    needs = needs if needs is not None else (True,) * (3 + 3 * L)
+    dout = g_outs if g_outs is not None else torch.zeros_like(saved.hseq[-1])
+    layer_grads: List[Optional[torch.Tensor]] = [None] * (3 * L)
+    dh0, dc0, g_xs = [None] * L, [None] * L, None
+    for layer in reversed(range(L)):
+        p = params[layer]
+        gh = g_h[layer].contiguous() if g_h is not None else None
+        gc = g_c[layer].contiguous() if g_c is not None else None
+        dg, dh0[layer], dc0[layer] = recurrence(
+            dout.contiguous(), gh, gc, saved.act[layer], saved.cseq[layer], c0[layer], p["w_hh"])
+        x = xs if layer == 0 else saved.hseq[layer - 1]
+        want = needs[3 + 3 * layer : 6 + 3 * layer]
+        if want[0]:
+            layer_grads[3 * layer] = torch.bmm(x.transpose(1, 2), dg).sum(0)
+        if want[1]:
+            h_prev = torch.cat([h0[layer][None], saved.hseq[layer][:-1]])
+            layer_grads[3 * layer + 1] = torch.bmm(h_prev.transpose(1, 2), dg).sum(0)
+        if want[2]:
+            layer_grads[3 * layer + 2] = dg.sum(1).sum(0)
+        if layer > 0 or needs[0]:
+            dx = _dx(dg, p["w_ih"])
+            if layer > 0:
+                dout = dx
+            else:
+                g_xs = dx
+    g_h0 = torch.stack(dh0) if needs[1] else None
+    g_c0 = torch.stack(dc0) if needs[2] else None
+    return (g_xs, g_h0, g_c0, *layer_grads)
+
+
+def lstm_seq_bwd(params, xs, hidden, saved: Saved, g_outs, g_h, g_c, needs=None):
+    """B2's backward on the card: the recurrence in the kernel of
+    `csrc/lstm_bwd.cu`. Arguments and result as `_lstm_seq_bwd`."""
+    return _lstm_seq_bwd(lstm_bwd_kernel, params, xs, hidden, saved, g_outs, g_h, g_c, needs)
+
+
+def lstm_seq_bwd_plain(params, xs, hidden, saved: Saved, g_outs, g_h, g_c, needs=None):
+    """The plain version of B2's backward: the same algorithm with the
+    recurrence in `lstm_bwd_recurrence_plain`."""
+    return _lstm_seq_bwd(lstm_bwd_recurrence_plain, params, xs, hidden, saved, g_outs, g_h, g_c, needs)
 
 
 class LstmSeqDiff(torch.autograd.Function):
     """Kernel B2: `lstm_seq` differentiable in xs, h0, c0 and every weight.
 
     Arguments: (num_layers, xs, h0, c0, w_ih_0, w_hh_0, b_0, w_ih_1, ...).
-    Returns (outs [T, B, H], hT, cT [L, B, H]). `calls` counts forward calls;
-    a caller may reset it."""
+    Returns (outs [T, B, H], hT, cT [L, B, H]). On CUDA tensors the forward
+    is B1 with its save pointers and the backward `lstm_seq_bwd`; on CPU
+    tensors `lstm_seq_plain(save=True)` and `lstm_seq_bwd_plain`. `calls`
+    counts forward calls; a caller may reset it."""
 
     calls = 0
 
     @staticmethod
     def forward(ctx, num_layers: int, xs, h0, c0, *flat):
         params = _unflatten(num_layers, flat)
-        outs, (h_t, c_t) = lstm_seq(params, xs, (h0, c0))
+        fwd = lstm_seq_kernel if xs.is_cuda else lstm_seq_plain
+        outs, (h_t, c_t), saved = fwd(params, xs, (h0, c0), save=True)
         ctx.num_layers = num_layers
-        ctx.save_for_backward(xs, h0, c0, *flat)
+        ctx.set_materialize_grads(False)  # an unused output's grad stays None
+        ctx.save_for_backward(xs, h0, c0, outs, *flat)
+        # The top layer's h sequence is outs, saved above with the inputs.
+        ctx.saved = saved._replace(hseq=saved.hseq[:-1])
         LstmSeqDiff.calls += 1
         return outs, h_t, c_t
 
     @staticmethod
     def backward(ctx, g_outs, g_h, g_c):
-        saved = ctx.saved_tensors
-        needs = ctx.needs_input_grad[1:]
-        with torch.enable_grad():
-            inputs = [t.detach().requires_grad_(n) for t, n in zip(saved, needs)]
-            xs, h0, c0, *flat = inputs
-            outs, (h_t, c_t) = lstm_seq_plain(_unflatten(ctx.num_layers, flat), xs, (h0, c0))
-            grad_outputs = [
-                torch.zeros_like(y) if g is None else g
-                for y, g in ((outs, g_outs), (h_t, g_h), (c_t, g_c))
-            ]
-            wanted = [t for t, n in zip(inputs, needs) if n]
-            grads = iter(torch.autograd.grad((outs, h_t, c_t), wanted, grad_outputs, allow_unused=True))
-        return (None, *(next(grads) if n else None for n in needs))
+        xs, h0, c0, outs, *flat = ctx.saved_tensors
+        saved = ctx.saved._replace(hseq=ctx.saved.hseq + [outs])
+        bwd = lstm_seq_bwd if xs.is_cuda else lstm_seq_bwd_plain
+        grads = bwd(_unflatten(ctx.num_layers, flat), xs, (h0, c0), saved, g_outs, g_h, g_c,
+                    ctx.needs_input_grad[1:])
+        return (None, *grads)
 
 
 def _flatten(params: LSTMParams) -> List[torch.Tensor]:

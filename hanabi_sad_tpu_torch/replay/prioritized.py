@@ -164,6 +164,10 @@ class ReplayRows(NamedTuple):
 
 
 def gather_rows(state: ReplayState, idx: torch.Tensor) -> ReplayRows:
+    """The rows at idx, every field read as JAX's `x[idx]` reads it
+    (`gather_unpack.jax_index`: negative indices count from the end, the rest
+    is clamped)."""
+    idx = gather_unpack_op.jax_index(idx, state.packed.shape[0])
     return ReplayRows(
         packed=state.packed[idx],
         action=state.action[idx],

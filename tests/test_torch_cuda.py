@@ -17,7 +17,8 @@ from hanabi_sad_tpu_torch.game.state import shuffled_decks
 from hanabi_sad_tpu_torch.models import lstm as tlstm
 from hanabi_sad_tpu_torch.models import r2d2_net as tnet
 from hanabi_sad_tpu_torch.ops import gather_unpack as gu
-from hanabi_sad_tpu_torch.ops.lstm_seq import LstmSeqDiff, lstm_seq_diff, lstm_seq_kernel, lstm_seq_plain
+from hanabi_sad_tpu_torch.ops.lstm_seq import (
+    LstmSeqDiff, lstm_bwd_kernel, lstm_seq_diff, lstm_seq_kernel, lstm_seq_plain)
 from hanabi_sad_tpu_torch.replay import prioritized as trep
 from hanabi_sad_tpu_torch.tools import loaders
 from hanabi_sad_tpu_torch.train import learner, selfplay
@@ -62,7 +63,7 @@ def test_kernel_matches_plain_on_card(card, T, B):
     out, (h, c) = tlstm.lstm_seq(params, xs, (h0, c0))
     ref, (rh, rc) = lstm_seq_plain(params, xs, (h0, c0))
     torch.cuda.synchronize()
-    assert lstm_seq_kernel.launches == launches + T * len(params)
+    assert lstm_seq_kernel.launches == launches + (len(params) if T == 1 else 2 * len(params))
     for a, b in ((out, ref), (h, rh), (c, rc)):
         assert float((a - b).detach().abs().max()) <= 1e-4
 
@@ -120,10 +121,138 @@ def test_gather_unpack_kernel_equals_plain_on_card(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("T,B", [(3, 1000), (5, 13)])
+def test_b1_recurrence_over_many_or_ragged_rows_on_card(card, T, B):
+    """B = 1000 is more row tiles than fit on the card at once (each block
+    takes several a step); B = 13 is one ragged tile."""
+    params, xs, h0, c0 = lstm_inputs(T, B, 512, 2, seed=8, device=card)
+    out, (h, c) = lstm_seq_kernel(params, xs, (h0, c0))
+    ref, (rh, rc) = lstm_seq_plain(params, xs, (h0, c0))
+    torch.cuda.synchronize()
+    for a, b in ((out, ref), (h, rh), (c, rc)):
+        assert float((a - b).abs().max()) <= 1e-4
+
+
+def flagship_lstm(card):
+    return loaders.load_native_checkpoint(FLAGSHIP, device=card).params.online.lstm
+
+
+def f64_gaps(params, seed, card):
+    """For one input at [80, 128, 512]: the largest distance of B1's, B2's
+    and the plain float32 version's outputs to float64, and of B2's and plain
+    float32 autograd's grads to float64 autograd, each grad relative to its
+    largest float64 value. Also whether B2's forward equals B1's."""
+    rng = np.random.RandomState(seed)
+    L, (T, B, H) = len(params), (80, 128, 512)
+    as_t = lambda a: torch.from_numpy(a.astype(np.float32)).to(card)
+    xs, h0, c0 = as_t(rng.randn(T, B, H)), as_t(0.5 * rng.randn(L, B, H)), as_t(0.5 * rng.randn(L, B, H))
+    cot = [as_t(rng.randn(T, B, H)), as_t(rng.randn(L, B, H)), as_t(rng.randn(L, B, H))]
+
+    def run(fn, dtype):
+        ps = [{k: v.to(dtype).clone().requires_grad_(True) for k, v in p.items()} for p in params]
+        ts = [t.to(dtype).clone().requires_grad_(True) for t in (xs, h0, c0)]
+        outs, (h, c) = fn(ps, ts[0], (ts[1], ts[2]))
+        leaves = ts + [p[k] for p in ps for k in ("w_ih", "w_hh", "b")]
+        grads = torch.autograd.grad((outs, h, c), leaves, [g.to(dtype) for g in cot])
+        return [y.detach() for y in (outs, h, c)], grads
+
+    with torch.no_grad():
+        b1 = lstm_seq_kernel(params, xs, (h0, c0))
+        b1 = [b1[0], *b1[1]]
+    b2_y, b2_g = run(lstm_seq_diff, torch.float32)
+    p_y, p_g = run(lstm_seq_plain, torch.float32)
+    r_y, r_g = run(lstm_seq_plain, torch.float64)
+    gap = lambda a, r: float((a.double() - r).abs().max())
+    rel = lambda a, r: gap(a, r) / float(r.abs().max())
+    return {
+        "B1": [gap(a, r) for a, r in zip(b1, r_y)], "B2": [gap(a, r) for a, r in zip(b2_y, r_y)],
+        "plain": [gap(a, r) for a, r in zip(p_y, r_y)],
+        "B2_grad": [rel(a, r) for a, r in zip(b2_g, r_g)], "plain_grad": [rel(a, r) for a, r in zip(p_g, r_g)],
+        "b2_is_b1": all(torch.equal(a, b) for a, b in zip(b2_y, b1)),
+    }
+
+
+@pytest.mark.cuda
+def test_b1_and_b2_against_float64_on_card(card):
+    """At the learner shape on the flagship's LSTM weights, over 8 inputs:
+    the largest distance to float64 of B1's outputs (over outs, hT and cT),
+    of B2's outputs, and of each of B2's grads is at most twice the plain
+    float32 version's (plain autograd's for the grads). Rounding amplified
+    over 80 steps depends on the input, so the bound is relative to the plain
+    version's own distance, not absolute."""
+    params = flagship_lstm(card)
+    worst = {}
+    for seed in range(8):
+        reading = f64_gaps(params, seed, card)
+        assert reading.pop("b2_is_b1")
+        for k, v in reading.items():
+            worst[k] = np.maximum(worst.get(k, 0.0), v)
+    for who in ("B1", "B2"):
+        assert worst[who].max() <= 2.0 * worst["plain"].max(), (who, worst[who], worst["plain"])
+    assert np.all(worst["B2_grad"] <= 2.0 * worst["plain_grad"]), worst["B2_grad"] / worst["plain_grad"]
+
+
+@pytest.mark.cuda
+def test_b1_and_b2_give_the_same_bits_twice_on_card(card):
+    params, xs, h0, c0 = lstm_inputs(80, 128, 512, 2, seed=9, device=card)
+    for T in (1, 80):
+        a = lstm_seq_kernel(params, xs[:T], (h0, c0))
+        b = lstm_seq_kernel(params, xs[:T], (h0, c0))
+        assert all(torch.equal(x, y) for x, y in zip((a[0], *a[1]), (b[0], *b[1])))
+
+    def grads():
+        ps = [{k: v.clone().requires_grad_(True) for k, v in p.items()} for p in params]
+        ts = [t.clone().requires_grad_(True) for t in (xs, h0, c0)]
+        outs, (h, c) = lstm_seq_diff(ps, ts[0], (ts[1], ts[2]))
+        leaves = ts + [p[k] for p in ps for k in ("w_ih", "w_hh", "b")]
+        return torch.autograd.grad((outs ** 2).sum() + h.sum() + c.sum(), leaves)
+
+    assert all(torch.equal(x, y) for x, y in zip(grads(), grads()))
+
+
+@pytest.mark.cuda
+def test_gather_unpack_kernel_indexes_like_jax_on_card(card):
+    """Indices in [-cap, -1] count from the end, the rest is clamped: the
+    rows JAX's `packed[idx]` reads."""
+    gen = torch.Generator().manual_seed(1)
+    cap = 50
+    packed = torch.randint(0, 256, (cap, 80, 2, 110), dtype=torch.uint8, generator=gen).to(card)
+    idx = torch.tensor([-cap - 2, -cap, -1, 0, cap - 1, cap, cap + 3], device=card)
+    rows = torch.tensor([0, 0, cap - 1, 0, cap - 1, cap - 1, cap - 1], device=card)
+    out = gu.gather_unpack_kernel(packed, idx)
+    assert torch.equal(out, gu.gather_unpack_plain(packed, idx))
+    assert torch.equal(out, gu.gather_unpack_plain(packed, rows))
+
+
+@pytest.mark.cuda
+def test_b2_one_step_on_card(card):
+    """B2 at T = 1 keeps its gates through the gates kernel's epilogue (not
+    the recurrence): outputs and grads against plain autograd, ragged B."""
+    params, xs, h0, c0 = lstm_inputs(1, 13, 512, 2, seed=10, device=card)
+
+    def run(fn):
+        ps = [{k: v.clone().requires_grad_(True) for k, v in p.items()} for p in params]
+        ts = [t.clone().requires_grad_(True) for t in (xs, h0, c0)]
+        outs, (h, c) = fn(ps, ts[0], (ts[1], ts[2]))
+        leaves = ts + [p[k] for p in ps for k in ("w_ih", "w_hh", "b")]
+        return (outs, h, c), torch.autograd.grad((outs ** 2).sum() + h.sum() + (c ** 2).sum(), leaves)
+
+    bwd = lstm_bwd_kernel.launches
+    ys, grads = run(lstm_seq_diff)
+    ref_ys, ref_grads = run(lstm_seq_plain)
+    torch.cuda.synchronize()
+    assert lstm_bwd_kernel.launches == bwd + 2
+    for a, b in zip(ys, ref_ys):
+        assert float((a - b).detach().abs().max()) <= 1e-5
+    for g, r in zip(grads, ref_grads):
+        assert float((g - r).abs().max()) <= 1e-4 * float(r.abs().max())
+
+
+@pytest.mark.cuda
 def test_b2_grads_equal_plain_autograd_on_card(card):
-    """B2 (B1's forward, the plain version's backward) against autograd of
-    the plain version: outputs within 1e-4 (B1's summation order over 6
-    steps), grads within 1e-4 of the largest reference grad."""
+    """B2 (B1's forward keeping its gates, the backward kernel) against
+    autograd of the plain version: outputs within 1e-4 (B1's summation order
+    over 6 steps), grads within 1e-4 of the largest reference grad."""
     params, xs, h0, c0 = lstm_inputs(6, 24, 512, 2, seed=7, device=card)
 
     def run(fn):
@@ -157,10 +286,13 @@ def test_forward_gives_trunk_and_lstm_gradients_on_card(card):
     priv_s = torch.from_numpy((rng.rand(10, 6, 838) < 0.1).astype(np.float32)).to(card)
     legal = torch.ones(10, 6, 21, device=card)
     action = torch.from_numpy(rng.randint(0, 21, (10, 6))).to(card)
-    calls, launches = LstmSeqDiff.calls, lstm_seq_kernel.launches
+    calls, launches, bwd = LstmSeqDiff.calls, lstm_seq_kernel.launches, lstm_bwd_kernel.launches
     qa, _, _, _ = tnet.forward(params, cfg, priv_s, legal, action)
     grads = torch.autograd.grad(qa.sum(), leaves)
-    assert LstmSeqDiff.calls == calls + 1 and lstm_seq_kernel.launches == launches + 10 * 2
+    # T = 10: per layer the input projection and one persistent recurrence,
+    # then one backward launch per layer
+    assert LstmSeqDiff.calls == calls + 1 and lstm_seq_kernel.launches == launches + 2 * 2
+    assert lstm_bwd_kernel.launches == bwd + 2
     assert all(float(g.abs().max()) > 0 for g in grads)
 
 

@@ -1,16 +1,19 @@
 """Kernel B2 (`hanabi_sad_tpu_torch.ops.lstm_seq.LstmSeqDiff`), the
-differentiable sequence LSTM, against the JAX package's
-`pallas_lstm.lstm_seq_pallas_diff` (its forward in interpret mode, as
-tests/test_ops.py runs it) and against autograd of the port's plain LSTM.
+differentiable sequence LSTM, against the JAX package: `jax.vjp` of
+`hanabi_sad_tpu.models.lstm.lstm_seq` and `pallas_lstm.lstm_seq_pallas_diff`
+(its forward in interpret mode, as tests/test_ops.py runs it); and against
+autograd of the port's plain LSTM in float64.
 
-On the CPU, B2's forward is the plain version and its backward recomputes
-the plain version under autograd, so these tests hold the Function's
-plumbing (argument order, the grads of xs, h0, c0 and every weight, the
-zeros for unused outputs) against JAX. Inputs are made with numpy from a
+On the CPU, B2's forward is the plain version keeping its gates
+(`lstm_seq_plain(save=True)`) and its backward is `lstm_seq_bwd_plain`, the
+BPTT algorithm of the backward kernel written in plain PyTorch over those
+saved gates: these tests hold that algorithm (and the Function's plumbing:
+argument order, the grads of xs, h0, c0 and every weight, unused outputs and
+inputs that want no grad) against JAX. Inputs are made with numpy from a
 seed: T=6, B=5, H=32, L=2. Tolerances: 1e-5 abs on values and 1e-4 abs on
-grads against JAX (float32 sums over 6 steps in another order); exact
-equality against the plain version's own autograd (the same arithmetic).
-Kernel B2 on the card is in tests/test_torch_cuda.py."""
+grads against JAX (float32 sums over 6 steps in another order); 1e-10 of the
+largest grad against float64 autograd (the same derivatives, rounded in
+another order). The kernels on the card are in tests/test_torch_cuda.py."""
 
 import jax
 import jax.numpy as jnp
@@ -18,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from hanabi_sad_tpu.models import lstm as jlstm
 from hanabi_sad_tpu.ops.experimental import pallas_lstm
 from hanabi_sad_tpu_torch.models import lstm as tlstm
 from hanabi_sad_tpu_torch.models import r2d2_net as tnet
@@ -89,28 +93,98 @@ def test_b2_matches_jax_grad_through_pallas_diff(pallas_interpret, seed):
         np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=1e-4, rtol=0)
 
 
+def test_b2_forward_keeping_its_gates_matches_jax_scan():
+    """The forward that keeps the gates gives the JAX scan's outputs, and the
+    plain version's bit for bit."""
+    params, xs, h0, c0, _, _ = make(5)
+    tp, txs, th0, tc0 = torch_leaves(params, xs, h0, c0)
+    outs, (h_t, c_t) = lstm_seq_diff(tp, txs, (th0, tc0))
+    jp = [{k: jnp.asarray(v) for k, v in p.items()} for p in params]
+    j_outs, (j_h, j_c) = jlstm.lstm_seq(jp, jnp.asarray(xs), (jnp.asarray(h0), jnp.asarray(c0)))
+    with torch.no_grad():
+        ref = lstm_seq_plain(tp, txs, (th0, tc0))
+    for t, j, r in ((outs, j_outs, ref[0]), (h_t, j_h, ref[1][0]), (c_t, j_c, ref[1][1])):
+        np.testing.assert_allclose(t.detach().numpy(), np.asarray(j), atol=1e-5, rtol=0)
+        assert torch.equal(t.detach(), r)
+
+
+# Which inputs want a grad and which outputs' grads are given; None is an
+# output that the objective does not use.
+VJP_CASES = {
+    "all": (("xs", "h0", "c0", "w"), ("outs", "hT", "cT")),
+    "no_g_h": (("xs", "h0", "c0", "w"), ("outs", "cT")),
+    "no_g_c": (("xs", "h0", "c0", "w"), ("outs", "hT")),
+    "outs_only": (("xs", "h0", "c0", "w"), ("outs",)),
+    "weights_only": (("w",), ("outs", "hT", "cT")),
+    "xs_and_c0": (("xs", "c0"), ("hT", "cT")),
+}
+
+
+@pytest.mark.parametrize("case", list(VJP_CASES))
+def test_b2_bwd_plain_matches_jax_vjp(case):
+    wanted, given = VJP_CASES[case]
+    params, xs, h0, c0, g_out, g_h = make(6)
+    g_c = np.random.RandomState(60).randn(L, B, H).astype(np.float32)
+    cot = {"outs": g_out, "hT": g_h, "cT": g_c}
+    jp = [{k: jnp.asarray(v) for k, v in p.items()} for p in params]
+    _, vjp = jax.vjp(jlstm.lstm_seq, jp, jnp.asarray(xs), (jnp.asarray(h0), jnp.asarray(c0)))
+    jcot = {n: jnp.asarray(a if n in given else np.zeros_like(a)) for n, a in cot.items()}
+    j_p, j_x, (j_h0, j_c0) = vjp((jcot["outs"], (jcot["hT"], jcot["cT"])))
+    j_grads = {"xs": j_x, "h0": j_h0, "c0": j_c0}
+    for layer, p in enumerate(j_p):
+        for k in ("w_ih", "w_hh", "b"):
+            j_grads[f"{k}{layer}"] = p[k]
+
+    tp = [{k: torch.tensor(v, requires_grad="w" in wanted) for k, v in p.items()} for p in params]
+    t_in = {n: torch.tensor(a, requires_grad=n in wanted) for n, a in (("xs", xs), ("h0", h0), ("c0", c0))}
+    calls = LstmSeqDiff.calls
+    outs, (h_t, c_t) = lstm_seq_diff(tp, t_in["xs"], (t_in["h0"], t_in["c0"]))
+    assert LstmSeqDiff.calls == calls + 1
+    ys = {"outs": outs, "hT": h_t, "cT": c_t}
+    leaves = {n: t for n, t in t_in.items() if n in wanted}
+    if "w" in wanted:
+        leaves.update({f"{k}{layer}": p[k] for layer, p in enumerate(tp) for k in ("w_ih", "w_hh", "b")})
+    grads = torch.autograd.grad([ys[n] for n in given], list(leaves.values()),
+                                [torch.from_numpy(cot[n]) for n in given])
+    for name, g in zip(leaves, grads):
+        np.testing.assert_allclose(g.numpy(), np.asarray(j_grads[name]), atol=1e-4, rtol=0, err_msg=name)
+
+
 def test_b2_equals_autograd_of_the_plain_version():
+    """In float64, B2's backward (the BPTT of lstm_seq_bwd_plain over the
+    saved gates) gives autograd's grads of the plain version within 1e-10 of
+    each tensor's largest grad."""
     params, xs, h0, c0, g_out, g_h = make(2)
+    params = [{k: v.astype(np.float64) for k, v in p.items()} for p in params]
+    xs, h0, c0, g_out, g_h = (a.astype(np.float64) for a in (xs, h0, c0, g_out, g_h))
     calls = LstmSeqDiff.calls
     obj, grads = torch_objective(lstm_seq_diff, params, xs, h0, c0, g_out, g_h)
     ref_obj, ref_grads = torch_objective(lstm_seq_plain, params, xs, h0, c0, g_out, g_h)
     assert LstmSeqDiff.calls == calls + 1
-    assert torch.equal(obj, ref_obj)
+    assert grads[0].dtype == torch.float64
+    np.testing.assert_allclose(float(obj.detach()), float(ref_obj.detach()), rtol=1e-12)
     for g, r in zip(grads, ref_grads):
-        assert torch.equal(g, r)
+        assert float((g - r).abs().max()) <= 1e-10 * float(r.abs().max())
 
 
 def test_b2_grads_only_what_is_asked_and_unused_outputs_count_as_zero():
+    """Only w_hh wants a grad and only cT is used: B2 gives w_hh's grads of
+    both layers as JAX's vjp with zero cotangents for outs and hT does, and
+    the other weights none."""
     params, xs, h0, c0, _, _ = make(3)
     tp = [{k: torch.tensor(v, requires_grad=(k == "w_hh")) for k, v in p.items()} for p in params]
     txs, th0, tc0 = (torch.from_numpy(a) for a in (xs, h0, c0))
     outs, (h_t, c_t) = lstm_seq_diff(tp, txs, (th0, tc0))
     assert outs.requires_grad and h_t.requires_grad
-    (g,) = torch.autograd.grad(c_t.sum(), [tp[0]["w_hh"]])  # outs and hT unused
-    ref_params = [{k: torch.tensor(v, requires_grad=(k == "w_hh")) for k, v in p.items()} for p in params]
-    _, (_, ref_c) = lstm_seq_plain(ref_params, txs, (th0, tc0))
-    (ref,) = torch.autograd.grad(ref_c.sum(), [ref_params[0]["w_hh"]])
-    assert torch.equal(g, ref) and float(g.abs().max()) > 0
+    w_hh = [p["w_hh"] for p in tp]
+    grads = torch.autograd.grad(c_t.sum(), w_hh)  # outs and hT unused
+    jp = [{k: jnp.asarray(v) for k, v in p.items()} for p in params]
+    _, vjp = jax.vjp(jlstm.lstm_seq, jp, jnp.asarray(xs), (jnp.asarray(h0), jnp.asarray(c0)))
+    j_p, _, _ = vjp((jnp.zeros((T, B, H)), (jnp.zeros((L, B, H)), jnp.ones((L, B, H)))))
+    for g, j in zip(grads, j_p):
+        np.testing.assert_allclose(g.numpy(), np.asarray(j["w_hh"]), atol=1e-4, rtol=0)
+        assert float(g.abs().max()) > 0
+    assert all(p["w_ih"].grad is None and p["b"].grad is None for p in tp)
 
 
 def test_cpu_routing_takes_the_plain_version_with_grad():

@@ -85,14 +85,39 @@ def test_gather_unpack_plain_matches_pallas_and_unpack():
 
 
 def test_gather_unpack_clamps_indices_and_cpu_launches_nothing():
+    """Out-of-range indices read as in JAX: -3 counts from the end (episode
+    2 of 5), 9 is clamped to 4."""
     packed = torch.from_numpy(np.random.RandomState(1).randint(0, 256, (5, 3, 1, 4)).astype(np.uint8))
     before = gather_unpack_kernel.launches
     out = gather_unpack(packed, torch.tensor([-3, 0, 4, 9]))
-    ref = gather_unpack_plain(packed, torch.tensor([0, 0, 4, 4]))
+    ref = gather_unpack_plain(packed, torch.tensor([2, 0, 4, 4]))
     assert torch.equal(out, ref)
     assert gather_unpack_kernel.launches == before
     with pytest.raises(ValueError, match="CUDA"):
         gather_unpack_kernel(packed, torch.tensor([0]))
+
+
+OUT_OF_RANGE = [-CAP - 2, -CAP, -1, 0, CAP - 1, CAP, CAP + 3]
+
+
+def test_gather_unpack_plain_indexes_like_jnp():
+    """Indices beyond the buffer at both ends, and negative ones inside it,
+    read the rows that jnp indexing of the same numpy buffer reads."""
+    rng = np.random.RandomState(2)
+    packed = rng.randint(0, 256, (CAP, 3, 2, 5)).astype(np.uint8)
+    idx = np.asarray(OUT_OF_RANGE, np.int64)
+    ref = np.asarray(jbitpack.unpack_bits(jnp.asarray(packed)[jnp.asarray(idx)], 40))
+    out = gather_unpack_plain(torch.from_numpy(packed), torch.from_numpy(idx))
+    np.testing.assert_array_equal(out.numpy(), ref)
+
+
+def test_gather_rows_indexes_like_jax():
+    jstate, tstate = filled()
+    idx = np.asarray(OUT_OF_RANGE, np.int32)
+    jrows = jrep.gather_rows(jstate, jnp.asarray(idx))
+    trows = trep.gather_rows(tstate, torch.from_numpy(idx).long())
+    for f in jrows._fields:
+        np.testing.assert_array_equal(getattr(trows, f).numpy(), np.asarray(getattr(jrows, f)), err_msg=f)
 
 
 @pytest.mark.parametrize("use_valid", [False, True])
