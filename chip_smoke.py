@@ -5,7 +5,7 @@
 Phases, each printing JSON lines (any failure exits nonzero):
   1. device   the card, its power limit, the torch and CUDA versions;
   2. build    nvcc builds kernels B1 (ops/csrc/lstm_seq.cu), B2's backward
-              (ops/csrc/lstm_bwd.cu) and B3 (ops/csrc/gather_unpack.cu) in
+              (ops/csrc/lstm_bwd.cu) and B3 (ops/csrc/sample_batch.cu) in
               parallel, with -Xptxas -v;
   3. check    on the flagship's LSTM weights: B1 against its plain version
               at the eval shape, the rollout shape and a ragged batch; at
@@ -14,20 +14,28 @@ Phases, each printing JSON lines (any failure exits nonzero):
               than twice the plain float32 version (autograd for the grads), B2's
               forward equal to B1's bit for bit and its grads within
               GRAD_REL_TOL of plain autograd; two calls of B1 and of B2 on the
-              same inputs give the same bits; B3 against its plain version on
-              random bytes and at indices out of range on both ends;
+              same inputs give the same bits; B3 against its plain version,
+              every field of the Batch bit for bit, on random replay fields
+              and at indices out of range on both ends;
   4. timing   B1 at the eval, rollout and learner shapes, B2 forward + backward, B3,
               each beside its plain version, its library call (cuDNN
               nn.LSTM for B1 and B2, none for B3), its bound and its launches
-              per call;
+              per call; B3 as device time under torch.profiler, with L2
+              flushed before each call (its caller finds the replay cold)
+              and without, and per call back to back with the host's
+              launch time;
   5. eval     greedy self-play of docs/runs/sad_aux_r4_soup10.pkl, 1000 games,
               through B1, then through the plain LSTM on the same decks;
   6. train    the flagship SAD-AUX trainer (preset sad_2p, pred_weight 0.25,
               float32) at full width, warm-started from the same checkpoint:
               one collect-only chunk, B3 against its plain version on that
-              real replay, 3 train chunks (one line each, with launch
-              counts), then one sgd_update from one state and one batch
-              through the kernels and through the plain versions;
+              real replay with duplicate indices, 3 train chunks (one line
+              each, with launch counts); then, on one presampled batch: one
+              sgd_update through the kernels and through the plain versions;
+              that the learner's reshapes of B3's fields are views; that
+              duplicate rows give bit-identical priorities; and a train_state
+              payload saved and restored into a fresh state, whose
+              sgd_update gives the same bits as the saved state's;
   7. kernels  one {"kernels": [...]} line for B1, B2 and B3.
 The line before the last is the card's name and power limit as nvidia-smi
 prints them; the last line is {"ok": true, "device": {...}}.
@@ -42,8 +50,10 @@ faulthandler.dump_traceback_later(900, exit=True)
 
 import json  # noqa: E402
 import math  # noqa: E402
+import os  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
+import tempfile  # noqa: E402
 import time  # noqa: E402
 
 FLAGSHIP = "docs/runs/sad_aux_r4_soup10.pkl"
@@ -72,6 +82,10 @@ F64_FACTOR = 2.0
 GRAD_REL_TOL = 1e-3
 H100_F32_FLOPS = 67e12  # float32 outside the tensor cores, H100 SXM data sheet
 H100_BYTES_PER_S = 3.35e12
+# Bytes written over the card's L2 (50 MB) before each flushed timing call,
+# by a kernel whose name no timed function's kernels carry.
+FLUSH_BYTES = 64 * 2 ** 20
+FLUSH_KERNEL = "bitwise_not"
 # Warm-start bands of the train phase, per train chunk. They are set wide
 # around two references of the same preset and warm start:
 #  * the JAX package on the CPU (scripts/jax_warmstart_reference.py, 1024
@@ -120,6 +134,35 @@ def lstm_flops(T, B, H, L):
     return 2.0 * T * L * B * (2 * H) * (4 * H)
 
 
+def device_ms(torch, fn, flush=None, iters=20, warmup=3):
+    """Per call of fn: the device time of the kernels it launches, summed
+    from torch.profiler, so the host's time to launch them is left out (B3's
+    wrapper takes longer on the host than its kernel on the card). With
+    `flush`, L2 is overwritten before each call and the flush's own kernel
+    is left out of the sum."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            if flush is not None:
+                flush()
+            fn()
+        torch.cuda.synchronize()
+    us = lambda row: getattr(row, "self_device_time_total", None) or getattr(row, "self_cuda_time_total", 0)
+    total = sum(us(row) for row in prof.key_averages() if FLUSH_KERNEL not in row.key)
+    return total / iters / 1e3
+
+
+def batch_bytes(T, B, Pi, NB, F, A, H3):
+    """Bytes B3 must move: the Batch written once (f32 bit fields, int64
+    action, f32 reward, bootstrap, terminal and seq_len) and its inputs
+    read once (the packed rows, the side fields' rows, the indices)."""
+    writes = 4 * T * B * Pi * (F + A + H3) + 8 * T * B * Pi + 3 * 4 * T * B + 4 * B
+    reads = T * B * Pi * NB + 8 * T * B * Pi + 2 * 4 * T * B + 4 * B + 8 * B
+    return writes + reads
+
+
 def cuda_ms(torch, fn, iters=50, warmup=5):
     for _ in range(warmup):
         fn()
@@ -143,22 +186,24 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from hanabi_sad_tpu_torch.agent import r2d2_agent
     from hanabi_sad_tpu_torch.agent.r2d2_agent import AgentParams, clone_params
     from hanabi_sad_tpu_torch.game.config import GameConfig
     from hanabi_sad_tpu_torch.game.state import shuffled_decks
     from hanabi_sad_tpu_torch.models import lstm as lstm_mod
+    from hanabi_sad_tpu_torch.models import r2d2_net
     from hanabi_sad_tpu_torch.ops import build
-    from hanabi_sad_tpu_torch.ops import gather_unpack as gu
+    from hanabi_sad_tpu_torch.ops import sample_batch as sb
     from hanabi_sad_tpu_torch.ops.lstm_seq import (
         LstmSeqDiff, lstm_bwd_kernel, lstm_seq_diff, lstm_seq_kernel, lstm_seq_plain)
     from hanabi_sad_tpu_torch.replay import prioritized as replay_mod
     from hanabi_sad_tpu_torch.tools import loaders
+    from hanabi_sad_tpu_torch.train import checkpoint as ckpt
     from hanabi_sad_tpu_torch.train import learner, selfplay
     from hanabi_sad_tpu_torch.train.config import make_config
     from hanabi_sad_tpu_torch.train.evaluate import evaluate
-    from hanabi_sad_tpu_torch.train.optim import AdamState
 
-    b3 = gu.gather_unpack_kernel
+    b3 = sb.sample_batch_kernel
     dev = torch.device("cuda")
 
     def reset_counts():
@@ -294,29 +339,39 @@ def main():
         fail(f"two calls on the same inputs gave different bits: {deterministic}")
     b2_max_err = max(max(worst["B2"].values()), *b2_grad_rel.values())
 
-    # B3 on random bytes, indices out of range clamped by both versions
-    packed = torch.randint(0, 256, (50, 80, 2, 110), dtype=torch.uint8, generator=gen).to(dev)
+    # B3 on random replay fields, indices out of range read as JAX reads them
+    sizes = dict(obs_dim=838, num_actions=21, hand_size=5)
+
+    def replay_fields(cap, seed):
+        """Random replay fields of the flagship's episode shape, made on the card."""
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return (torch.randint(0, 256, (cap, 80, 2, 110), dtype=torch.uint8, generator=g, device=dev),
+                torch.randint(0, 21, (cap, 80, 2), generator=g, device=dev),
+                torch.randn(cap, 80, generator=g, device=dev), torch.rand(cap, 80, generator=g, device=dev),
+                torch.randint(1, 81, (cap,), generator=g, device=dev).float())
+
     b3_errors = []
 
-    def b3_check(case, packed, idx):
-        out_k, out_p = b3(packed, idx), gu.gather_unpack_plain(packed, idx)
+    def b3_check(case, fields, idx, rows=None):
+        out_k = b3(*fields, idx, **sizes)
+        out_p = sb.sample_batch_plain(*fields, idx if rows is None else rows, **sizes)
         torch.cuda.synchronize()
-        b3_errors.append(float((out_k - out_p).abs().max()))
-        same = torch.equal(out_k, out_p)
+        b3_errors.append(max(float((a.double() - b.double()).abs().max()) for a, b in zip(out_k, out_p)))
+        same = {f: bool(torch.equal(a, b)) for f, a, b in zip(out_k._fields, out_k, out_p)}
+        contiguous = all(t.is_contiguous() for t in out_k)
         emit({"phase": "check", "kernel": "B3", "case": case, "B": int(idx.numel()),
-              "distinct": int(idx.unique().numel()), "equal": same})
-        if not same:
-            fail(f"B3 disagrees with its plain version on {case}")
+              "distinct": int(idx.unique().numel()), "equal": same, "contiguous": contiguous})
+        if not (all(same.values()) and contiguous):
+            fail(f"B3 disagrees with its plain version on {case}: {same}, contiguous {contiguous}")
 
-    b3_check("random bytes, indices out of range", packed, torch.tensor([3, 49, 3, -2, 60, 0], device=dev))
-    # indices beyond both ends and negative ones read as JAX reads them:
+    fields = replay_fields(50, seed=0)
+    b3_check("random replay, indices out of range", fields, torch.tensor([3, 49, 3, -2, 60, 0, 7], device=dev))
     # [-cap, -1] counts from the end, the rest is clamped
-    cap = packed.shape[0]
+    cap = 50
     idx = torch.tensor([-cap - 2, -cap, -1, 0, cap - 1, cap, cap + 3], device=dev)
     rows = torch.tensor([0, 0, cap - 1, 0, cap - 1, cap - 1, cap - 1], device=dev)
-    b3_check("indices out of range, as JAX reads them", packed, idx)
-    if not torch.equal(b3(packed, idx), gu.gather_unpack_plain(packed, rows)):
-        fail("B3 does not read the rows JAX reads at indices out of range")
+    b3_check("indices out of range, as JAX reads them", fields, idx)
+    b3_check("indices out of range, against the rows JAX reads", fields, idx, rows)
     emit({"phase": "check", "seconds": round(time.time() - t0, 3)})
 
     # 4. timing
@@ -370,15 +425,29 @@ def main():
                             "launches_per_call": {k: v for k, v in per_call.items() if k != "b3"}}
 
     # B3 at the flagship shape: 64 of 65,536 episodes of [80, 2, 110] bytes
+    # into the Batch, with L2 flushed before each call and without
     cap, Bs = 65536, 64
-    packed = torch.randint(0, 256, (cap, 80, 2, 110), dtype=torch.uint8, device=dev)
+    fields = replay_fields(cap, seed=1)
     idx = torch.randint(0, cap, (Bs,), device=dev)
-    ms = cuda_ms(torch, lambda: b3(packed, idx))
-    plain_ms = cuda_ms(torch, lambda: gu.gather_unpack_plain(packed, idx))
-    b_ms, b_by = bound(0.0, Bs * 8 + Bs * 80 * 2 * 110 + 4 * Bs * 80 * 2 * 880)
-    timing["B3_flagship"] = {"B": Bs, "cap": cap, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
-                             "bound_ms": b_ms, "bound_by": b_by}
-    del packed
+    scratch = torch.zeros(FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+    flush = scratch.bitwise_not_
+    b3_call = lambda: b3(*fields, idx, **sizes)
+    plain_call = lambda: sb.sample_batch_plain(*fields, idx, **sizes)
+    reset_counts()
+    b3_call()
+    per_call = counts()["b3"]
+    ms = device_ms(torch, b3_call, flush)
+    plain_ms = device_ms(torch, plain_call, flush)
+    warm_ms = device_ms(torch, b3_call)
+    warm_plain_ms = device_ms(torch, plain_call)
+    call_ms = cuda_ms(torch, b3_call)  # back to back, the host's launch time included
+    nbytes = batch_bytes(80, Bs, 2, 110, 838, 21, 15)
+    b_ms, b_by = bound(0.0, nbytes)
+    timing["B3_flagship"] = {"B": Bs, "cap": cap, "ms": ms, "plain_ms": plain_ms, "ms_unflushed": warm_ms,
+                             "plain_ms_unflushed": warm_plain_ms, "call_ms": call_ms, "library_ms": None,
+                             "bytes": nbytes,
+                             "bound_ms": b_ms, "bound_by": b_by, "launches_per_call": per_call}
+    del fields, scratch
     emit({"phase": "timing", "card": smi_line, **timing, "seconds": round(time.time() - t0, 3)})
 
     # 5. eval: kernel path, then plain path on the same decks
@@ -428,7 +497,7 @@ def main():
     setup = learner.make_setup(cfg)
     tcfg = setup.train
     state = learner.init_train_state(setup, tcfg.seed, dev)
-    state = state._replace(params=selfplay.load_model(FLAGSHIP, dev))
+    state = selfplay.load_model(FLAGSHIP, state)
     optimizer = learner.make_optimizer(tcfg)
     shape = {"num_envs": tcfg.num_envs, "batch_episodes": tcfg.batchsize, "T": tcfg.max_len,
              "hidden": tcfg.rnn_hid_dim, "replay_capacity": tcfg.replay_buffer_size,
@@ -461,7 +530,9 @@ def main():
     idx, _ = replay_mod.sample_indices(state.replay, setup.replay, tcfg.batchsize,
                                        generator=torch.Generator(device=dev).manual_seed(3))
     idx[32:40] = idx[0:8]
-    b3_check("real replay after one collect chunk", state.replay.packed, idx)
+    r = state.replay
+    b3_check("real replay after one collect chunk, duplicate indices",
+             (r.packed, r.action, r.reward, r.bootstrap, r.seq_len), idx)
 
     totals = dict.fromkeys(expect_train, 0)
     train_walls = []
@@ -497,20 +568,20 @@ def main():
         opt = state.opt_state
         return state._replace(
             params=AgentParams(online=clone_params(state.params.online), target=clone_params(state.params.target)),
-            opt_state=AdamState(mu=[m.clone() for m in opt.mu], nu=[v.clone() for v in opt.nu], count=opt.count),
+            opt_state=opt._replace(mu=[m.clone() for m in opt.mu], nu=[v.clone() for v in opt.nu]),
             replay=state.replay._replace(weight=state.replay.weight.clone()),
         )
 
     s_k, m_k = learner.sgd_update(setup, optimizer, copy_state(), presampled=(rows, is_w, idx))
-    kernel_gather_unpack = gu.gather_unpack
-    lstm_mod.lstm_seq, gu.gather_unpack = lstm_seq_plain, gu.gather_unpack_plain
+    kernel_sample_batch = sb.sample_batch
+    lstm_mod.lstm_seq, sb.sample_batch = lstm_seq_plain, sb.sample_batch_plain
     try:
         before = counts()
         s_p, m_p = learner.sgd_update(setup, optimizer, copy_state(), presampled=(rows, is_w, idx))
         if counts() != before:
             fail("the plain sgd_update launched a kernel")
     finally:
-        lstm_mod.lstm_seq, gu.gather_unpack = kernel_lstm_seq, kernel_gather_unpack
+        lstm_mod.lstm_seq, sb.sample_batch = kernel_lstm_seq, kernel_sample_batch
     p_k, p_p = s_k.replay.weight[idx], s_p.replay.weight[idx]
     gaps = {
         "loss": abs(float(m_k["loss"]) - float(m_p["loss"])) / abs(float(m_p["loss"])),
@@ -522,6 +593,77 @@ def main():
     bad = {k: v for k, v in gaps.items() if not v <= SGD_REL_TOL[k]}
     if bad:
         fail(f"sgd_update through the kernels differs from the plain versions: {bad}")
+
+    # The learner's reshapes of B3's fields are views, and duplicate rows of
+    # a batch give bit-identical priorities (update_priority writes them in
+    # no fixed order); the batch repeats its rows 0-7 at rows 32-39.
+    dup_idx = idx.clone()
+    dup_idx[32:40] = dup_idx[0:8]
+    batch = replay_mod.rows_to_batch(setup.replay, replay_mod.gather_rows(state.replay, dup_idx))
+    seen = {}
+    forward, pred_loss = r2d2_net.forward, r2d2_net.pred_loss_1st
+
+    def recording_forward(params, net_cfg, priv_s, legal, action):
+        seen.setdefault("priv_s", priv_s.data_ptr())
+        seen.setdefault("legal_move", legal.data_ptr())
+        return forward(params, net_cfg, priv_s, legal, action)
+
+    def recording_pred_loss(params, lstm_o, own_hand, *args):
+        seen["own_hand"] = own_hand.data_ptr()
+        return pred_loss(params, lstm_o, own_hand, *args)
+
+    r2d2_net.forward, r2d2_net.pred_loss_1st = recording_forward, recording_pred_loss
+    try:
+        with torch.no_grad():
+            _, priority, _ = r2d2_agent.loss(state.params, setup.agent, batch, tcfg.pred_weight)
+    finally:
+        r2d2_net.forward, r2d2_net.pred_loss_1st = forward, pred_loss
+    views = {k: seen.get(k) == getattr(batch, k).data_ptr() for k in ("priv_s", "legal_move", "own_hand")}
+    agg = r2d2_agent.aggregate_priority(priority, batch.seq_len, setup.agent.eta).view(torch.int32).tolist()
+    firsts, dups, differing = {}, 0, 0
+    for j, p in zip(dup_idx.tolist(), agg):
+        if j in firsts:
+            dups += 1
+            differing += p != firsts[j]
+        firsts.setdefault(j, p)
+    emit({"phase": "train", "check": "views and duplicate priorities", "views": views,
+          "duplicate_rows": dups, "duplicate_rows_differing": differing})
+    if not all(views.values()):
+        fail(f"a reshape of B3's output was a copy: {views}")
+    if differing:
+        fail(f"{differing} of {dups} duplicate rows gave priorities that differ in their bits")
+
+    # A train_state payload saved and restored into a fresh state: one
+    # sgd_update from each on the same presampled batch gives the same bits.
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "latest.pkl")
+        t0 = time.time()
+        ckpt.save(path, ckpt.train_state_payload(state, {"preset": "sad_2p", "pred_weight": 0.25}))
+        save_s, size = time.time() - t0, os.path.getsize(path)
+        t0 = time.time()
+        restored = ckpt.restore_train_state(ckpt.load(path), learner.init_train_state(setup, 0, dev))
+        restore_s = time.time() - t0
+    generators_equal = all(torch.equal(a.get_state(), b.get_state()) for a, b in
+                           ((state.env_gen, restored.env_gen), (state.sample_gen, restored.sample_gen)))
+    s_a, m_a = learner.sgd_update(setup, optimizer, copy_state(), presampled=(rows, is_w, idx))
+    s_b, m_b = learner.sgd_update(setup, optimizer, restored, presampled=(rows, is_w, idx))
+    pairs = {
+        "metrics": [(m_a[k], m_b[k]) for k in m_a],
+        "online": list(zip(learner.param_leaves(s_a.params.online), learner.param_leaves(s_b.params.online))),
+        "target": list(zip(learner.param_leaves(s_a.params.target), learner.param_leaves(s_b.params.target))),
+        "mu": list(zip(s_a.opt_state.mu, s_b.opt_state.mu)),
+        "nu": list(zip(s_a.opt_state.nu, s_b.opt_state.nu)),
+        "priority": [(s_a.replay.weight[idx], s_b.replay.weight[idx])],
+    }
+    same = {k: all(torch.equal(a, b) for a, b in v) for k, v in pairs.items()}
+    same["counts"] = (s_a.opt_state.count, s_a.opt_state.lr_count, s_a.num_update) == (
+        s_b.opt_state.count, s_b.opt_state.lr_count, s_b.num_update)
+    same["generators"] = generators_equal
+    emit({"phase": "train", "check": "save and restore", "bytes": size, "save_s": save_s,
+          "restore_s": restore_s, "num_update": s_b.num_update, "same_bits": same})
+    if not all(same.values()):
+        fail(f"sgd_update after save and restore differs: {same}")
+    del restored, s_a, s_b
 
     # 7. kernels: launches are the 3 train chunks' (the eval's B1 count is on its line)
     b1, b2, b3t = timing["B1_learner"], timing["B2_learner"], timing["B3_flagship"]
@@ -540,12 +682,14 @@ def main():
          "launches": totals["b2_bwd"], "calls": totals["b2"], "max_abs_err": b2_max_err, "ms": b2["ms"],
          "plain_ms": b2["plain_ms"], "bound_ms": b2["bound_ms"], "bound_by": b2["bound_by"],
          "library_ms": b2["library_ms"], "shape": "T=80 B=128 H=512 L=2, forward + backward"},
-        {"name": "gather_unpack (B3)", "route": "cuda",
-         "source": "hanabi_sad_tpu_torch/ops/csrc/gather_unpack.cu",
+        {"name": "sample_batch (B3)", "route": "cuda",
+         "source": "hanabi_sad_tpu_torch/ops/csrc/sample_batch.cu",
          "replaces": "hanabi_sad_tpu/ops/experimental/pallas_replay.py:68",
          "launches": totals["b3"], "max_abs_err": max(b3_errors), "ms": b3t["ms"], "plain_ms": b3t["plain_ms"],
+         "ms_unflushed": b3t["ms_unflushed"], "plain_ms_unflushed": b3t["plain_ms_unflushed"],
+         "call_ms": b3t["call_ms"],
          "bound_ms": b3t["bound_ms"], "bound_by": b3t["bound_by"], "library_ms": None,
-         "shape": "64 of 65,536 episodes x [80, 2, 110] bytes"},
+         "shape": "64 of 65,536 episodes x [80, 2, 110] bytes -> Batch [80, 64, 2, 838 + 21 + 15]"},
     ], "train_chunk_wall_s": train_walls})
     print(f"# total seconds: {time.time() - t_all:.1f}", flush=True)
     print(smi_line, flush=True)

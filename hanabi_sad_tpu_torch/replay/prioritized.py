@@ -3,7 +3,8 @@
 
 The whole buffer is a set of tensors on the device. Writes scatter at a ring
 cursor, the stratified proportional sampler is a cumsum + searchsorted, and
-the sample's gather + bit unpack is kernel B3 (`ops/gather_unpack.py`).
+kernel B3 (`ops/sample_batch.py`) gathers the sampled episodes, unpacks their
+bits and writes the learner Batch in one pass.
 
 Semantics are the JAX package's:
   * priorities are raised to alpha on add and update;
@@ -27,6 +28,7 @@ import torch
 
 from hanabi_sad_tpu_torch.agent.r2d2_agent import Batch
 from hanabi_sad_tpu_torch.ops import gather_unpack as gather_unpack_op
+from hanabi_sad_tpu_torch.ops import sample_batch as sample_batch_op
 from hanabi_sad_tpu_torch.replay.bitpack import packed_size
 
 
@@ -123,6 +125,28 @@ def add_packed(
     )
 
 
+# Row length of `blocked_cumsum`'s two-level scan: at the flagship's 65,536
+# slots, 16 rows.
+SCAN_ROW = 4096
+
+
+def blocked_cumsum(w: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum of a 1-D tensor that gives the same bits on every
+    run, on every device. A 1-D `torch.cumsum` on the card goes through CUB's
+    decoupled look-back scan, whose order of summation changes from run to
+    run; this one is cut into rows of SCAN_ROW (at least 2, zero-padded),
+    each row scanned along itself, the row totals scanned down the rows, and
+    each row given the total of the rows before it. Both scans are PyTorch's
+    fixed-order 2-D scans."""
+    n = w.shape[0]
+    rows = max(2, -(-n // SCAN_ROW))
+    if rows * SCAN_ROW != n:
+        w = torch.nn.functional.pad(w, (0, rows * SCAN_ROW - n))
+    grid = w.view(rows, SCAN_ROW).cumsum(1)
+    before = torch.nn.functional.pad(grid.cumsum(0)[:-1, -1], (1, 0))
+    return (grid + before[:, None]).view(-1)[:n]
+
+
 def sample_indices(
     state: ReplayState,
     cfg: ReplayConfig,
@@ -139,7 +163,7 @@ def sample_indices(
     device = state.weight.device
     valid = torch.arange(cfg.capacity, device=device) < state.size
     w = torch.where(valid, state.weight, torch.zeros_like(state.weight))
-    cum = torch.cumsum(w, 0)
+    cum = blocked_cumsum(w)
     total = cum[-1]
     seg = total / batchsize
     if uniforms is None:
@@ -177,32 +201,19 @@ def gather_rows(state: ReplayState, idx: torch.Tensor) -> ReplayRows:
     )
 
 
-def _to_batch(cfg: ReplayConfig, bits: torch.Tensor, action, reward, bootstrap, seq_len) -> Batch:
-    """Split unpacked bits [B, T, Pi, >= n_bits] into fields and make the
-    time-major learner Batch ([T, B, ...]) with the gathered rows' fields."""
-    F, A, n_bits = cfg.obs_dim, cfg.num_actions, cfg.bits_per_step
-    tm = lambda x: x.transpose(0, 1)  # [B, T, ...] -> [T, B, ...]
-    t_idx = torch.arange(cfg.seq_len, dtype=torch.float32, device=seq_len.device)[:, None]
-    return Batch(
-        priv_s=tm(bits[..., :F]),
-        legal_move=tm(bits[..., F : F + A]),
-        action=tm(action),
-        own_hand=tm(bits[..., F + A : n_bits]),
-        reward=tm(reward),
-        terminal=(t_idx >= (seq_len[None, :] - 1)).float(),
-        bootstrap=tm(bootstrap),
-        seq_len=seq_len,
+def _sample_batch(cfg: ReplayConfig, packed, action, reward, bootstrap, seq_len, idx) -> Batch:
+    return sample_batch_op.sample_batch(
+        packed, action, reward, bootstrap, seq_len, idx,
+        obs_dim=cfg.obs_dim, num_actions=cfg.num_actions, hand_size=cfg.hand_size,
     )
 
 
 def rows_to_batch(cfg: ReplayConfig, rows: ReplayRows) -> Batch:
     """Unpack one batch of gathered rows ([B, T, ...]) into the time-major
-    learner Batch ([T, B, ...]). The unpack goes through B3 with the identity
-    index."""
-    B = rows.packed.shape[0]
-    ident = torch.arange(B, device=rows.packed.device)
-    bits = gather_unpack_op.gather_unpack(rows.packed, ident)
-    return _to_batch(cfg, bits, rows.action, rows.reward, rows.bootstrap, rows.seq_len)
+    learner Batch ([T, B, ...], every field contiguous): B3 over the rows
+    with the identity index."""
+    ident = torch.arange(rows.packed.shape[0], device=rows.packed.device)
+    return _sample_batch(cfg, rows.packed, rows.action, rows.reward, rows.bootstrap, rows.seq_len, ident)
 
 
 def sample(
@@ -213,16 +224,13 @@ def sample(
     generator: Optional[torch.Generator] = None,
     uniforms: Optional[torch.Tensor] = None,
 ) -> Tuple[Batch, torch.Tensor, torch.Tensor]:
-    """Stratified proportional sample of `batchsize` episodes; the packed
-    observations are gathered and unpacked in one pass by B3.
+    """Stratified proportional sample of `batchsize` episodes; B3 gathers
+    them from the ring and writes the learner Batch in one launch.
 
     Returns (Batch [T, B, Pi, ...], is_weight [B], indices [B]). The caller
     feeds the indices back through update_priority after the gradient step."""
     idx, is_w = sample_indices(state, cfg, batchsize, generator=generator, uniforms=uniforms)
-    bits = gather_unpack_op.gather_unpack(state.packed, idx)
-    batch = _to_batch(
-        cfg, bits, state.action[idx], state.reward[idx], state.bootstrap[idx], state.seq_len[idx]
-    )
+    batch = _sample_batch(cfg, state.packed, state.action, state.reward, state.bootstrap, state.seq_len, idx)
     return batch, is_w, idx
 
 

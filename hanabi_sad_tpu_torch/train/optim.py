@@ -6,11 +6,13 @@ make_optimizer`), with optax's semantics written in plain torch:
     by norm + 1e-6 instead, so it is not used;
   * Adam with bias correction and eps outside the square root:
     mu_hat / (sqrt(nu_hat) + eps);
-  * the lr is a constant or a linear schedule, indexed by the update count
-    before its increment.
+  * the lr is a constant or a linear schedule, indexed by the schedule's
+    own step count before its increment, as optax keeps it apart from
+    Adam's.
 
-The state is named as optax names it (`mu`, `nu`, `count`), so a JAX
-`train_state` payload can be mapped onto it. Params are updated in place.
+The state is named as optax names it (`mu`, `nu`, `count`, and `lr_count`
+for optax's `ScaleByScheduleState.count`), so a JAX `train_state` payload
+maps onto it (`train/checkpoint.py`). Params are updated in place.
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ import torch
 class AdamState(NamedTuple):
     mu: List[torch.Tensor]
     nu: List[torch.Tensor]
-    count: int  # updates taken so far
+    count: int  # updates taken so far (bias correction)
+    lr_count: int  # the lr schedule's step count
 
 
 def linear_schedule(init_value: float, end_value: float, transition_steps: int) -> Callable[[int], float]:
@@ -59,6 +62,7 @@ class ClipAdam:
             mu=[torch.zeros_like(p, memory_format=torch.contiguous_format) for p in params],
             nu=[torch.zeros_like(p, memory_format=torch.contiguous_format) for p in params],
             count=0,
+            lr_count=0,
         )
 
     @torch.no_grad()
@@ -71,11 +75,11 @@ class ClipAdam:
         # 1 - decay**count in float32, as optax takes it.
         f32 = lambda x: torch.tensor(x, dtype=torch.float32)
         bc1, bc2 = float(1 - f32(self.b1) ** count), float(1 - f32(self.b2) ** count)
-        step_size = -self.lr(state.count)
+        step_size = -self.lr(state.lr_count)
         for p, g, m, v in zip(params, grads, state.mu, state.nu):
             g = torch.where(keep, g, (g / norm) * self.max_norm)
             m.mul_(self.b1).add_((1 - self.b1) * g)
             v.mul_(self.b2).add_((1 - self.b2) * g.square())
             update = (m / bc1) / (torch.sqrt(v / bc2) + self.eps)
             p.add_(step_size * update)
-        return AdamState(mu=state.mu, nu=state.nu, count=count), norm
+        return AdamState(mu=state.mu, nu=state.nu, count=count, lr_count=state.lr_count + 1), norm

@@ -1,38 +1,45 @@
 """Self-play training driver (counterpart of `hanabi_sad_tpu/train/selfplay.py`).
 
-Flags -> config, optional warm start, burn-in, an epoch loop of train chunks
-with per-epoch mean metrics, and a greedy eval each `eval_freq_epochs`.
+Flags -> config, optional warm start or resume, burn-in, an epoch loop of
+train chunks with per-epoch telemetry, a greedy eval and checkpoints:
 
     python -m hanabi_sad_tpu_torch.train.selfplay --preset sad_2p --pred_weight 0.25 \\
-        --load_model docs/runs/sad_aux_r4_soup10.pkl --num_epoch 1
+        --save_dir exps/sad_aux --load_model docs/runs/sad_aux_r4_soup10.pkl
 
 Runs on the CUDA card unless --device says otherwise (--device cpu).
-Checkpoint saving and the JAX package's telemetry utilities (Logger,
-TopkSaver, Tachometer) are not ported yet.
+Everything printed also goes to `<save_dir>/train.log`. `--load_model`
+takes a `train_state` payload (resume: params, Adam state, update counter,
+random streams; the replay refills through burn-in) or a params payload
+(both nets). Each eval writes the top 5 params payloads by score
+(`model0.pkl` .. `model4.pkl`) and `latest.pkl`, a `train_state` payload;
+every 50 epochs also `model_epoch{N}.pkl`. Payloads are in the JAX package's
+format (`train/checkpoint.py`), so either package loads them.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import pprint
-import time
-from typing import Dict, List, Optional, Sequence
+import sys
+from typing import Dict, Optional, Sequence
 
-import numpy as np
 import torch
 
 from hanabi_sad_tpu_torch.agent import r2d2_agent
-from hanabi_sad_tpu_torch.agent.r2d2_agent import AgentParams
 from hanabi_sad_tpu_torch.device import resolve_device
 from hanabi_sad_tpu_torch.tools.loaders import EvalPolicy
 from hanabi_sad_tpu_torch.train import checkpoint as ckpt
 from hanabi_sad_tpu_torch.train import learner
 from hanabi_sad_tpu_torch.train.config import PRESETS, TrainConfig, make_config
 from hanabi_sad_tpu_torch.train.evaluate import evaluate
+from hanabi_sad_tpu_torch.utils import Logger, MultiCounter, Stopwatch, Tachometer, TopkSaver, get_mem_usage
 
 # Metrics averaged per epoch and printed, as the JAX driver prints them.
 EPOCH_KEYS = ("loss", "grad_norm", "rl_loss", "aux1", "chunk_score", "chunk_len", "explore_ratio")
+# Forced `model_epoch{N}` snapshots, and an eval, every this many epochs.
+SNAPSHOT_EPOCHS = 50
 
 
 def parse_args(argv=None):
@@ -58,36 +65,36 @@ def parse_args(argv=None):
     return make_config(args.preset, **overrides), args.device
 
 
-def load_model(path: str, device) -> AgentParams:
-    """A `kind="params"` payload into online and target (a bare net
-    initialises both; an online/target pair keeps its target)."""
+def load_model(path: str, state: learner.TrainState) -> learner.TrainState:
+    """`state` with a checkpoint loaded into it: a `train_state` payload
+    resumes (params, Adam state, update counter, random streams), a params
+    payload replaces both nets (a bare net initialises online and target)."""
     payload = ckpt.load(path)
-    saved = payload["params"]
-    online = ckpt.from_jax_params(getattr(saved, "online", saved), device)
-    target = ckpt.from_jax_params(getattr(saved, "target", saved), device)
-    return AgentParams(online=online, target=target)
-
-
-def _summary(epoch: int, seconds: float, rows: List[Dict[str, float]]) -> str:
-    lines = [f"[{epoch}] Time spent = {seconds:.2f} s"]
-    keys = sorted({k for r in rows for k in r if k in EPOCH_KEYS})
-    width = max((len(k) for k in keys), default=0)
-    for k in keys:
-        v = [r[k] for r in rows if k in r]
-        lines.append(
-            f"{k.ljust(width)}[{len(v):5d}]: avg: {np.mean(v):8.4f}, "
-            f"min: {min(v):8.4f}[{int(np.argmin(v)) + 1:4d}], "
-            f"max: {max(v):8.4f}[{int(np.argmax(v)) + 1:4d}]"
-        )
-    return "\n".join(lines)
+    if payload.get("kind") == "train_state":
+        return ckpt.restore_train_state(payload, state)
+    return state._replace(params=ckpt.load_params_into(payload, state.params))
 
 
 def train(cfg: TrainConfig, *, max_chunks: int = 0, device=None) -> dict:
-    """Run training on `device` (default `cuda`). max_chunks > 0 stops after
-    that many train chunks. Returns a summary of the final state: the last
-    eval, the update count and the last chunk's metrics."""
+    """Run training on `device` (default `cuda`), printing to stdout and to
+    `<save_dir>/train.log`. max_chunks > 0 stops after that many train
+    chunks. Returns a summary of the final state: the last eval, the update
+    count and the last chunk's metrics."""
     device = resolve_device(device)
+    os.makedirs(cfg.save_dir, exist_ok=True)
+    logger = Logger(os.path.join(cfg.save_dir, "train.log"))
+    stdout = sys.stdout
+    sys.stdout = logger
+    try:
+        return _train(cfg, max_chunks, device)
+    finally:
+        sys.stdout = stdout
+        logger.close()
+
+
+def _train(cfg: TrainConfig, max_chunks: int, device: torch.device) -> dict:
     pprint.pprint(dataclasses.asdict(cfg))
+    saver = TopkSaver(cfg.save_dir, 5, write=ckpt.save)
     setup = learner.make_setup(cfg)
     cfg = setup.train  # post-derived (VDN divisors)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
@@ -99,7 +106,9 @@ def train(cfg: TrainConfig, *, max_chunks: int = 0, device=None) -> dict:
     state = learner.init_train_state(setup, cfg.seed, device)
     if cfg.load_model:
         print("*****loading pretrained model*****")
-        state = state._replace(params=load_model(cfg.load_model, device))
+        state = load_model(cfg.load_model, state)
+        if state.num_update:
+            print(f"resumed at update {state.num_update}")
         print("*****done*****")
     optimizer = learner.make_optimizer(cfg)
 
@@ -112,12 +121,22 @@ def train(cfg: TrainConfig, *, max_chunks: int = 0, device=None) -> dict:
     print("Success, Done")
     print("=======================")
 
+    stat = MultiCounter()
+    tachometer = Tachometer()
+    stopwatch = Stopwatch(sync=torch.cuda.synchronize if device.type == "cuda" else None)
+    num_act_total = 0
     chunks_per_epoch = max(1, cfg.epoch_len // cfg.num_update_per_chunk)
-    summary: dict = {}
+    count_factor = cfg.num_player if cfg.vdn else 1
+    summary: Dict = {}
     total_chunks = 0
     for epoch in range(cfg.num_epoch):
         print(f"beginning of epoch: {epoch}")
-        t0 = time.time()
+        print(get_mem_usage())
+        tachometer.start()
+        stat.reset()
+        stopwatch.reset()
+        # Metrics stay on the device until the epoch ends: one read per
+        # epoch, not one per chunk and metric.
         epoch_metrics = []
         for _ in range(chunks_per_epoch):
             state, metrics = learner.train_chunk(setup, optimizer, state)
@@ -126,12 +145,23 @@ def train(cfg: TrainConfig, *, max_chunks: int = 0, device=None) -> dict:
             if max_chunks and total_chunks >= max_chunks:
                 break
         rows = [{k: float(v) for k, v in m.items()} for m in epoch_metrics]
+        for row in rows:
+            stat.feed_dict({k: v for k, v in row.items() if k in EPOCH_KEYS})
+            num_act_total += int(row["chunk_frames"]) * cfg.num_player
+        stopwatch.time("train chunk")
+
         print(f"EPOCH: {epoch}")
-        print(_summary(epoch, time.time() - t0, rows))
+        print(tachometer.lap(num_act_total, int(state.replay.num_add),
+                             len(rows) * cfg.num_update_per_chunk * cfg.batchsize, count_factor))
+        print(stopwatch.summary())
+        print(stat.summary(epoch))
         summary.update(num_update=state.num_update, metrics=rows[-1])
 
-        last = (max_chunks and total_chunks >= max_chunks) or epoch == cfg.num_epoch - 1
-        if epoch % cfg.eval_freq_epochs == 0 or last:
+        last = bool(max_chunks and total_chunks >= max_chunks) or epoch == cfg.num_epoch - 1
+        # The forced snapshot epochs join the eval gate, so that they fire
+        # whatever eval_freq_epochs is.
+        snapshot = epoch > 0 and epoch % SNAPSHOT_EPOCHS == 0
+        if epoch % cfg.eval_freq_epochs == 0 or snapshot or last:
             eval_seed = (9917 + epoch * 999999) % 7777777
             policy = EvalPolicy(
                 params=state.params, agent_cfg=setup.eval_agent, act_fn=r2d2_agent.act, sad=cfg.sad
@@ -140,7 +170,17 @@ def train(cfg: TrainConfig, *, max_chunks: int = 0, device=None) -> dict:
                 [policy] * cfg.num_player, cfg.num_eval_game, eval_seed, cfg.eval_bomb,
                 hand_size=cfg.hand_size, num_steps=cfg.eval_max_steps, device=device,
             )
-            print("epoch %d, eval score: %.4f, perfect: %.2f" % (epoch, score, perfect * 100))
+            stopwatch.time("eval")
+            config_dict = dataclasses.asdict(cfg)
+            model_saved = saver.save(
+                ckpt.params_payload(state.params.online, config_dict), score,
+                force_save_name=f"model_epoch{epoch}" if snapshot else None,
+            )
+            ckpt.save(os.path.join(cfg.save_dir, "latest.pkl"), ckpt.train_state_payload(state, config_dict))
+            print(
+                "epoch %d, eval score: %.4f, perfect: %.2f, model saved: %s"
+                % (epoch, score, perfect * 100, model_saved)
+            )
             summary.update(epoch=epoch, eval_score=score, perfect=perfect)
         print("==========")
         if last:

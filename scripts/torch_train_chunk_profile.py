@@ -77,7 +77,7 @@ def main():
     dev = torch.device("cuda")
     setup = learner.make_setup(make_config("sad_2p", pred_weight=0.25, burn_in_frames=2048))
     state = learner.init_train_state(setup, setup.train.seed, dev)
-    state = state._replace(params=selfplay.load_model(FLAGSHIP, dev))
+    state = selfplay.load_model(FLAGSHIP, state)
     optimizer = learner.make_optimizer(setup.train)
     state, _ = learner.collect_only(setup, state)
     state, _ = learner.train_chunk(setup, optimizer, state)  # warm-up

@@ -16,7 +16,7 @@ from hanabi_sad_tpu_torch.game.config import GameConfig
 from hanabi_sad_tpu_torch.game.state import shuffled_decks
 from hanabi_sad_tpu_torch.models import lstm as tlstm
 from hanabi_sad_tpu_torch.models import r2d2_net as tnet
-from hanabi_sad_tpu_torch.ops import gather_unpack as gu
+from hanabi_sad_tpu_torch.ops import sample_batch as sb
 from hanabi_sad_tpu_torch.ops.lstm_seq import (
     LstmSeqDiff, lstm_bwd_kernel, lstm_seq_diff, lstm_seq_kernel, lstm_seq_plain)
 from hanabi_sad_tpu_torch.replay import prioritized as trep
@@ -24,7 +24,6 @@ from hanabi_sad_tpu_torch.tools import loaders
 from hanabi_sad_tpu_torch.train import learner, selfplay
 from hanabi_sad_tpu_torch.train.config import make_config
 from hanabi_sad_tpu_torch.train.evaluate import evaluate
-from hanabi_sad_tpu_torch.train.optim import AdamState
 
 FLAGSHIP = str(Path(__file__).resolve().parents[1] / "docs/runs/sad_aux_r4_soup10.pkl")
 
@@ -98,26 +97,121 @@ def test_eval_on_card_matches_cpu(card):
     assert card_scores == cpu_scores
 
 
+FLAGSHIP_SIZES = dict(obs_dim=838, num_actions=21, hand_size=5)
+
+
+def replay_fields(cap, T, Pi, NB, seed, device):
+    """Random replay fields: packed bytes, actions, rewards, bootstraps and
+    lengths in [1, T]."""
+    gen = torch.Generator().manual_seed(seed)
+    fields = (
+        torch.randint(0, 256, (cap, T, Pi, NB), dtype=torch.uint8, generator=gen),
+        torch.randint(0, 21, (cap, T, Pi), generator=gen),
+        torch.randn(cap, T, generator=gen),
+        torch.rand(cap, T, generator=gen),
+        torch.randint(1, T + 1, (cap,), generator=gen).float(),
+    )
+    return tuple(t.to(device) for t in fields)
+
+
+def assert_same_batch(out, ref):
+    for name, a, b in zip(out._fields, out, ref):
+        assert a.is_contiguous(), name
+        assert a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b), name
+
+
 @pytest.mark.cuda
-def test_gather_unpack_kernel_equals_plain_on_card(card):
+def test_sample_batch_kernel_equals_plain_on_card(card):
     """B3 at the flagship episode shape [80, 2, 110], duplicate and
-    out-of-range indices: exactly equal (0/1 floats)."""
-    gen = torch.Generator().manual_seed(0)
-    packed = torch.randint(0, 256, (300, 80, 2, 110), dtype=torch.uint8, generator=gen).to(card)
-    for idx in ([5, 299, 5, 0, 17, 17, -1, 300], list(range(64))):
+    out-of-range indices, a batch that is no multiple of the kernel's 4
+    entries a block: every field exactly equal and contiguous."""
+    fields = replay_fields(300, 80, 2, 110, seed=0, device=card)
+    for idx in ([5, 299, 5, 0, 17, 17, -1, 300], list(range(64)), [7, 3, 250, 9, 9, 1, 0]):
         i = torch.tensor(idx, device=card)
-        launches = gu.gather_unpack_kernel.launches
-        out = gu.gather_unpack(packed, i)
-        ref = gu.gather_unpack_plain(packed, i)
+        launches = sb.sample_batch_kernel.launches
+        out = sb.sample_batch(*fields, i, **FLAGSHIP_SIZES)
+        ref = sb.sample_batch_plain(*fields, i, **FLAGSHIP_SIZES)
         torch.cuda.synchronize()
-        assert gu.gather_unpack_kernel.launches == launches + 1
-        assert out.shape == (len(idx), 80, 2, 880) and torch.equal(out, ref)
+        assert sb.sample_batch_kernel.launches == launches + 1
+        assert out.priv_s.shape == (80, len(idx), 2, 838)
+        assert_same_batch(out, ref)
     with pytest.raises(ValueError, match="int64"):
-        gu.gather_unpack_kernel(packed, i.int())
+        sb.sample_batch_kernel(*fields, i.int(), **FLAGSHIP_SIZES)
     with pytest.raises(ValueError, match="uint8"):
-        gu.gather_unpack_kernel(packed.float(), i)
+        sb.sample_batch_kernel(fields[0].float(), *fields[1:], i, **FLAGSHIP_SIZES)
     with pytest.raises(ValueError, match="CUDA"):
-        gu.gather_unpack_kernel(packed, i.cpu())
+        sb.sample_batch_kernel(*fields, i.cpu(), **FLAGSHIP_SIZES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,Pi,NB,F,A,h", [(3, 1, 5, 20, 7, 3), (7, 3, 6, 29, 5, 4)])
+def test_sample_batch_kernel_at_odd_shapes_on_card(card, T, Pi, NB, F, A, h):
+    """Rows of a byte count that is no multiple of 4 (byte loads) and field
+    widths that cut the 16-byte stores anywhere."""
+    fields = replay_fields(11, T, Pi, NB, seed=T, device=card)
+    sizes = dict(obs_dim=F, num_actions=A, hand_size=h)
+    for idx in ([0, 10, 3, 3, -2], [4]):
+        i = torch.tensor(idx, device=card)
+        assert_same_batch(sb.sample_batch(*fields, i, **sizes), sb.sample_batch_plain(*fields, i, **sizes))
+
+
+@pytest.mark.cuda
+def test_sample_batch_kernel_indexes_like_jax_on_card(card):
+    """Indices in [-cap, -1] count from the end, the rest is clamped: the
+    rows JAX's `x[idx]` reads."""
+    cap = 50
+    fields = replay_fields(cap, 80, 2, 110, seed=1, device=card)
+    idx = torch.tensor([-cap - 2, -cap, -1, 0, cap - 1, cap, cap + 3], device=card)
+    rows = torch.tensor([0, 0, cap - 1, 0, cap - 1, cap - 1, cap - 1], device=card)
+    out = sb.sample_batch_kernel(*fields, idx, **FLAGSHIP_SIZES)
+    assert_same_batch(out, sb.sample_batch_plain(*fields, idx, **FLAGSHIP_SIZES))
+    assert_same_batch(out, sb.sample_batch_plain(*fields, rows, **FLAGSHIP_SIZES))
+
+
+@pytest.mark.cuda
+def test_learner_reshapes_of_the_batch_are_views_on_card(card, monkeypatch):
+    """td_error's [T, B * Pi, ...] reshapes of priv_s and legal_move, and
+    loss's own_hand reshape, read B3's output in place."""
+    setup, state = small_trainer(card)
+    state, _ = learner.collect_only(setup, state)
+    batch, _, _ = trep.sample(state.replay, setup.replay, setup.train.batchsize,
+                              generator=torch.Generator(device=card).manual_seed(0))
+    seen = {}
+    forward, pred_loss = tnet.forward, tnet.pred_loss_1st
+
+    def recording_forward(params, cfg, priv_s, legal, action):
+        seen.setdefault("priv_s", priv_s.data_ptr())
+        seen.setdefault("legal_move", legal.data_ptr())
+        return forward(params, cfg, priv_s, legal, action)
+
+    def recording_pred_loss(params, lstm_o, own_hand, *args):
+        seen["own_hand"] = own_hand.data_ptr()
+        return pred_loss(params, lstm_o, own_hand, *args)
+
+    monkeypatch.setattr(tnet, "forward", recording_forward)
+    monkeypatch.setattr(tnet, "pred_loss_1st", recording_pred_loss)
+    from hanabi_sad_tpu_torch.agent import r2d2_agent
+
+    r2d2_agent.loss(state.params, setup.agent, batch, 0.25)
+    assert seen == {k: getattr(batch, k).data_ptr() for k in ("priv_s", "legal_move", "own_hand")}
+
+
+@pytest.mark.cuda
+def test_replay_sampling_gives_the_same_bits_twice_on_card(card):
+    """The sampler's prefix sum is a fixed-order scan on the card (a 1-D
+    torch.cumsum there sums in an order that changes from run to run): the
+    same indices and IS weights on every call, and the prefix sum within
+    float32 rounding of float64's."""
+    w = torch.rand(65536, generator=torch.Generator().manual_seed(3)).to(card)
+    cums = [trep.blocked_cumsum(w) for _ in range(20)]
+    assert all(torch.equal(c, cums[0]) for c in cums)
+    ref = torch.cumsum(w.double(), 0)
+    assert float((cums[0].double() - ref).abs().max()) <= 1e-6 * float(ref[-1])
+    setup, state = small_trainer(card)
+    state, _ = learner.collect_only(setup, state)
+    draws = [trep.sample_indices(state.replay, setup.replay, 16, generator=torch.Generator(device=card).manual_seed(0))
+             for _ in range(5)]
+    assert all(torch.equal(i, draws[0][0]) and torch.equal(w, draws[0][1]) for i, w in draws)
 
 
 @pytest.mark.cuda
@@ -211,20 +305,6 @@ def test_b1_and_b2_give_the_same_bits_twice_on_card(card):
 
 
 @pytest.mark.cuda
-def test_gather_unpack_kernel_indexes_like_jax_on_card(card):
-    """Indices in [-cap, -1] count from the end, the rest is clamped: the
-    rows JAX's `packed[idx]` reads."""
-    gen = torch.Generator().manual_seed(1)
-    cap = 50
-    packed = torch.randint(0, 256, (cap, 80, 2, 110), dtype=torch.uint8, generator=gen).to(card)
-    idx = torch.tensor([-cap - 2, -cap, -1, 0, cap - 1, cap, cap + 3], device=card)
-    rows = torch.tensor([0, 0, cap - 1, 0, cap - 1, cap - 1, cap - 1], device=card)
-    out = gu.gather_unpack_kernel(packed, idx)
-    assert torch.equal(out, gu.gather_unpack_plain(packed, idx))
-    assert torch.equal(out, gu.gather_unpack_plain(packed, rows))
-
-
-@pytest.mark.cuda
 def test_b2_one_step_on_card(card):
     """B2 at T = 1 keeps its gates through the gates kernel's epilogue (not
     the recurrence): outputs and grads against plain autograd, ragged B."""
@@ -315,17 +395,17 @@ def test_sgd_update_through_kernels_equals_plain_on_card(card, monkeypatch):
     def fresh_copy():
         return state._replace(
             params=AgentParams(clone_params(state.params.online), clone_params(state.params.target)),
-            opt_state=AdamState([m.clone() for m in state.opt_state.mu],
-                                [v.clone() for v in state.opt_state.nu], state.opt_state.count),
+            opt_state=state.opt_state._replace(mu=[m.clone() for m in state.opt_state.mu],
+                                               nu=[v.clone() for v in state.opt_state.nu]),
             replay=state.replay._replace(weight=state.replay.weight.clone()),
         )
 
-    counts = (lstm_seq_kernel.launches, LstmSeqDiff.calls, gu.gather_unpack_kernel.launches)
+    counts = (lstm_seq_kernel.launches, LstmSeqDiff.calls, sb.sample_batch_kernel.launches)
     s_k, m_k = learner.sgd_update(setup, optimizer, fresh_copy(), presampled=(rows, is_w, idx))
     assert lstm_seq_kernel.launches > counts[0] and LstmSeqDiff.calls == counts[1] + 1
-    assert gu.gather_unpack_kernel.launches == counts[2] + 1
+    assert sb.sample_batch_kernel.launches == counts[2] + 1
     monkeypatch.setattr(tlstm, "lstm_seq", lstm_seq_plain)
-    monkeypatch.setattr(gu, "gather_unpack", gu.gather_unpack_plain)
+    monkeypatch.setattr(sb, "sample_batch", sb.sample_batch_plain)
     s_p, m_p = learner.sgd_update(setup, optimizer, fresh_copy(), presampled=(rows, is_w, idx))
     for k in ("loss", "grad_norm", "rl_loss", "aux1"):
         assert abs(float(m_k[k]) - float(m_p[k])) <= 1e-4 * abs(float(m_p[k])), k
@@ -336,11 +416,11 @@ def test_sgd_update_through_kernels_equals_plain_on_card(card, monkeypatch):
 
 
 @pytest.mark.cuda
-def test_selfplay_trains_on_card(card):
+def test_selfplay_trains_on_card(card, tmp_path):
     cfg = make_config("sad_2p", pred_weight=0.25, num_envs=32, batchsize=16, burn_in_frames=64,
                       replay_buffer_size=256, max_len=24, rnn_hid_dim=64, num_update_per_chunk=2,
-                      epoch_len=2, num_epoch=2, num_eval_game=16, num_eps=4)
-    launches = gu.gather_unpack_kernel.launches
+                      epoch_len=2, num_epoch=2, num_eval_game=16, num_eps=4, save_dir=str(tmp_path))
+    launches = sb.sample_batch_kernel.launches
     out = selfplay.train(cfg, max_chunks=2, device=card)
     assert out["num_update"] == 4 and np.isfinite(out["metrics"]["loss"])
-    assert gu.gather_unpack_kernel.launches == launches + 4
+    assert sb.sample_batch_kernel.launches == launches + 4

@@ -3,7 +3,8 @@
   * no file of `hanabi_sad_tpu_torch/`, nor `chip_smoke.py`, imports jax,
     optax or the JAX package;
   * importing the whole port and loading the flagship checkpoint leaves jax
-    and `hanabi_sad_tpu` out of sys.modules;
+    and `hanabi_sad_tpu` out of sys.modules, and so do restoring the JAX
+    package's train_state payload and writing one;
   * `chip_smoke.py` fails, and prints no result, without a CUDA card and
     without the port beside it;
   * an entry point asked for no device raises where there is no CUDA card."""
@@ -23,6 +24,7 @@ from hanabi_sad_tpu_torch.tools import eval_model, loaders
 
 ROOT = Path(__file__).resolve().parents[1]
 FLAGSHIP = "docs/runs/sad_aux_r4_soup10.pkl"
+LATEST = "docs/runs/sad_aux_r1_latest.pkl"
 FORBIDDEN = {"jax", "jaxlib", "optax", "hanabi_sad_tpu"}
 
 
@@ -67,6 +69,37 @@ def test_port_and_checkpoint_load_need_no_jax():
     )
     assert proc.returncode == 0, proc.stderr
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+@pytest.mark.parametrize("module", [
+    "hanabi_sad_tpu_torch/ops/sample_batch.py", "hanabi_sad_tpu_torch/train/checkpoint.py",
+    "hanabi_sad_tpu_torch/train/selfplay.py", "hanabi_sad_tpu_torch/utils/saver.py",
+    "hanabi_sad_tpu_torch/utils/helper.py", "scripts/torch_sample_batch_ab.py",
+])
+def test_slice_4_modules_import_no_jax(module):
+    path = ROOT / module
+    assert path in port_files() or module.startswith("scripts/")
+    assert [m for m in imported_modules(path) if m.split(".")[0] in FORBIDDEN] == []
+
+
+def test_train_state_payloads_load_and_save_without_jax(tmp_path):
+    """The JAX package's flagship train_state payload (optax classes
+    inside) restores into the port, and the port writes one back, with
+    neither jax, optax nor the JAX package imported."""
+    code = (
+        "import json, sys\n"
+        "from hanabi_sad_tpu_torch.train import checkpoint, learner, config\n"
+        f"payload = checkpoint.load({str(ROOT / LATEST)!r})\n"
+        "setup = learner.make_setup(config.make_config('sad_2p', pred_weight=0.25, replay_buffer_size=64,"
+        " num_envs=2, max_len=8))\n"
+        "state = checkpoint.restore_train_state(payload, learner.init_train_state(setup, 0, 'cpu'))\n"
+        f"checkpoint.save({str(tmp_path / 'again.pkl')!r}, checkpoint.train_state_payload(state, {{}}))\n"
+        "print(json.dumps([state.num_update, sorted(m for m in sys.modules\n"
+        "    if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'hanabi_sad_tpu'))]))\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == [798560, []]
 
 
 def test_chip_smoke_fails_without_a_card():

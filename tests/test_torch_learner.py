@@ -146,11 +146,11 @@ def test_one_sgd_update_with_a_presampled_batch_matches_jax():
     assert tstate2.num_update == int(jstate2.num_update) == 1
 
 
-def test_selfplay_train_runs_two_chunks_on_the_cpu(capsys):
+def test_selfplay_train_runs_two_chunks_on_the_cpu(capsys, tmp_path):
     cfg = tconfig.make_config(
         "sad_2p", pred_weight=0.25, num_envs=8, batchsize=8, burn_in_frames=16, replay_buffer_size=64,
         epoch_len=4, num_update_per_chunk=2, num_epoch=3, num_eval_game=4, max_len=16, rnn_hid_dim=32,
-        num_update_between_sync=3, eval_max_steps=100, num_eps=4,
+        num_update_between_sync=3, eval_max_steps=100, num_eps=4, save_dir=str(tmp_path),
     )
     out = selfplay.train(cfg, max_chunks=2, device="cpu")
     log = capsys.readouterr().out

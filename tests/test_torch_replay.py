@@ -1,11 +1,14 @@
-"""The port's replay (`hanabi_sad_tpu_torch.replay`, `ops.gather_unpack`)
+"""The port's replay (`hanabi_sad_tpu_torch.replay`, `ops.gather_unpack`,
+`ops.sample_batch`)
 against the JAX package's, on the same numpy-made inputs.
 
 Small sizes: capacity 64, T = 12, Pi = 2, obs_dim 40 (76 bits, 10 bytes a
 step). Bit packing, the gather + unpack (kernel B3's plain version), the
 ring writes, the indices and the unpacked batches must be exactly equal;
 IS weights agree to 1e-6 relative (float32 powers of the same numbers).
-Kernel B3 itself runs only on a CUDA card (tests/test_torch_cuda.py)."""
+Kernel B3 itself runs only on a CUDA card (tests/test_torch_cuda.py); its
+plain version is held against the JAX package in
+tests/test_torch_sample_batch.py."""
 
 import jax
 import jax.numpy as jnp
@@ -16,7 +19,8 @@ import torch
 from hanabi_sad_tpu.ops.experimental import pallas_replay
 from hanabi_sad_tpu.replay import bitpack as jbitpack
 from hanabi_sad_tpu.replay import prioritized as jrep
-from hanabi_sad_tpu_torch.ops.gather_unpack import gather_unpack, gather_unpack_kernel, gather_unpack_plain
+from hanabi_sad_tpu_torch.ops.gather_unpack import gather_unpack_plain
+from hanabi_sad_tpu_torch.ops.sample_batch import sample_batch, sample_batch_kernel
 from hanabi_sad_tpu_torch.replay import bitpack as tbitpack
 from hanabi_sad_tpu_torch.replay import prioritized as trep
 
@@ -76,25 +80,33 @@ def test_gather_unpack_plain_matches_pallas_and_unpack():
     packed = np.array(jbitpack.pack_bits(jnp.asarray(bits)))
     idx = np.asarray([3, 17, 3, 31, 0, 17], np.int32)  # duplicates included
     ref = np.asarray(pallas_replay.gather_unpack_pallas(jnp.asarray(packed), jnp.asarray(idx), interpret=True))
-    out = gather_unpack(torch.from_numpy(packed), torch.from_numpy(idx).long())
+    out = gather_unpack_plain(torch.from_numpy(packed), torch.from_numpy(idx).long())
     assert out.shape == (6, 10, 2, nbits) and out.dtype == torch.float32
     np.testing.assert_array_equal(out.numpy(), ref)
     np.testing.assert_array_equal(out.numpy(), np.asarray(jbitpack.unpack_bits(jnp.asarray(packed), nbits))[idx])
     with pytest.raises(ValueError, match="int64"):
-        gather_unpack(torch.from_numpy(packed), torch.from_numpy(idx))
+        gather_unpack_plain(torch.from_numpy(packed), torch.from_numpy(idx))
 
 
 def test_gather_unpack_clamps_indices_and_cpu_launches_nothing():
     """Out-of-range indices read as in JAX: -3 counts from the end (episode
-    2 of 5), 9 is clamped to 4."""
-    packed = torch.from_numpy(np.random.RandomState(1).randint(0, 256, (5, 3, 1, 4)).astype(np.uint8))
-    before = gather_unpack_kernel.launches
-    out = gather_unpack(packed, torch.tensor([-3, 0, 4, 9]))
+    2 of 5), 9 is clamped to 4. B3 (`sample_batch`) on CPU tensors runs its
+    plain version and launches nothing; its kernel refuses CPU tensors."""
+    rng = np.random.RandomState(1)
+    packed = torch.from_numpy(rng.randint(0, 256, (5, 3, 1, 4)).astype(np.uint8))
+    out = gather_unpack_plain(packed, torch.tensor([-3, 0, 4, 9]))
     ref = gather_unpack_plain(packed, torch.tensor([2, 0, 4, 4]))
     assert torch.equal(out, ref)
-    assert gather_unpack_kernel.launches == before
+    fields = (packed, torch.from_numpy(rng.randint(0, 21, (5, 3, 1))), torch.randn(5, 3), torch.rand(5, 3),
+              torch.tensor([1.0, 2.0, 3.0, 3.0, 2.0]))
+    sizes = dict(obs_dim=10, num_actions=5, hand_size=5)
+    before = sample_batch_kernel.launches
+    batch = sample_batch(*fields, torch.tensor([-3, 0, 4, 9]), **sizes)
+    again = sample_batch(*fields, torch.tensor([2, 0, 4, 4]), **sizes)
+    assert all(torch.equal(a, b) for a, b in zip(batch, again))
+    assert sample_batch_kernel.launches == before
     with pytest.raises(ValueError, match="CUDA"):
-        gather_unpack_kernel(packed, torch.tensor([0]))
+        sample_batch_kernel(*fields, torch.tensor([0]), **sizes)
 
 
 OUT_OF_RANGE = [-CAP - 2, -CAP, -1, 0, CAP - 1, CAP, CAP + 3]
