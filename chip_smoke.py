@@ -14,16 +14,23 @@ Phases, each printing JSON lines (any failure exits nonzero):
               than twice the plain float32 version (autograd for the grads), B2's
               forward equal to B1's bit for bit and its grads within
               GRAD_REL_TOL of plain autograd; two calls of B1 and of B2 on the
-              same inputs give the same bits; B3 against its plain version,
-              every field of the Batch bit for bit, on random replay fields
-              and at indices out of range on both ends;
+              same inputs give the same bits; then B1 and B2's bfloat16 routes:
+              at the rollout shapes of 2 and 3 players and a ragged batch
+              against the plain bf16 version (BF16_STEP_ULPS), at the learner
+              shape over 8 seeds by the BF16_RULES against float64, B2's
+              forward equal to B1's, the same bits twice; B3 against its plain
+              version, every field of the Batch bit for bit, on random replay
+              fields and at indices out of range on both ends;
   4. timing   B1 at the eval, rollout and learner shapes, B2 forward + backward, B3,
               each beside its plain version, its library call (cuDNN
               nn.LSTM for B1 and B2, none for B3), its bound and its launches
               per call; B3 as device time under torch.profiler, with L2
               flushed before each call (its caller finds the replay cold)
               and without, and per call back to back with the host's
-              launch time;
+              launch time; B1 bf16 at the rollout shapes of 2 and 3 players
+              and the learner shape, and B2 bf16, each beside its plain
+              version, cuDNN in bf16, the float32 kernel and the bound at the
+              tensor cores' bf16 rate;
   5. eval     greedy self-play of docs/runs/sad_aux_r4_soup10.pkl, 1000 games,
               through B1, then through the plain LSTM on the same decks;
   6. train    the flagship SAD-AUX trainer (preset sad_2p, pred_weight 0.25,
@@ -36,7 +43,18 @@ Phases, each printing JSON lines (any failure exits nonzero):
               duplicate rows give bit-identical priorities; and a train_state
               payload saved and restored into a fresh state, whose
               sgd_update gives the same bits as the saved state's;
-  7. kernels  one {"kernels": [...]} line for B1, B2 and B3.
+     train_bf16  the same in compute_dtype bfloat16 (the shipped runs' dtype),
+              warm-started: one collect-only chunk, 3 train chunks within
+              BANDS beside the flagship log's bf16 epochs, one sgd_update
+              through the kernels and the plain versions (SGD_REL_TOL_BF16);
+     train_iql   preset iql_2p at full width from scratch: one collect-only
+              chunk, B3 bit for bit on that replay at Pi = 1, 2 train chunks
+              with finite metrics, one sgd_update kernels vs plain;
+     eval_iql_3p docs/runs/iql_3p_r5_model4.pkl, 1000 games of 3 players,
+              through B1 and the plain LSTM on the same decks, within
+              IQL_3P_BAND of the JAX package's eval;
+  7. kernels  one {"kernels": [...]} line for B1 and B2 in float32 and in
+              bfloat16, and B3.
 The line before the last is the card's name and power limit as nvidia-smi
 prints them; the last line is {"ok": true, "device": {...}}.
 
@@ -59,6 +77,16 @@ import time  # noqa: E402
 FLAGSHIP = "docs/runs/sad_aux_r4_soup10.pkl"
 JAX_FLAGSHIP_MEAN = 24.05  # README.md, 5000 games of the JAX eval
 MEAN_BAND = 0.25  # about 4-5 SEM of a 1000-game eval
+# The 3-player IQL checkpoint: the JAX package's greedy eval of it on the
+# CPU, 1000 games, seed 1 (python -m hanabi_sad_tpu.tools.eval_model --weight
+# docs/runs/iql_3p_r5_model4.pkl --num_game 1000 --num_player 3), mean and
+# SEM; the band is 4.7 SEM of a 1000-game eval, as MEAN_BAND is.
+IQL_3P = "docs/runs/iql_3p_r5_model4.pkl"
+JAX_IQL_3P_MEAN, JAX_IQL_3P_SEM = 14.593, 0.106665
+IQL_3P_BAND = 0.5
+# docs/runs/sad_aux_r1_train.log, epochs 803-805 (bfloat16, steady state),
+# beside which the bf16 warm-start chunks are reported.
+FLAGSHIP_LOG_BF16 = {"chunk_score": 23.48, "aux1": 0.40, "rl_loss": [0.19, 0.20], "grad_norm": 11.4, "loss": 5.7}
 KERNEL_TOL = 1e-4  # f32 sums in another order over K = 2H; state bounded by tanh
 # B1's shapes on the main path: eval (1000 games), rollout (1024 envs x 2
 # seats, once per net), learner target forward; and a batch that is no
@@ -81,6 +109,7 @@ F64_FACTOR = 2.0
 # reference grad of each tensor.
 GRAD_REL_TOL = 1e-3
 H100_F32_FLOPS = 67e12  # float32 outside the tensor cores, H100 SXM data sheet
+H100_BF16_FLOPS = 989e12  # bfloat16 on the tensor cores, dense, H100 SXM data sheet
 H100_BYTES_PER_S = 3.35e12
 # Bytes written over the card's L2 (50 MB) before each flushed timing call,
 # by a kernel whose name no timed function's kernels carry.
@@ -106,6 +135,35 @@ BANDS = {
 # Gap between one sgd_update through the kernels and through the plain
 # versions from the same state and batch: float32 sums in another order.
 SGD_REL_TOL = {"loss": 1e-4, "grad_norm": 1e-3, "priority": 1e-3}
+# B1 and B2's bfloat16 routes. Shapes: the rollout's one-step calls at 2 and
+# 3 players (1024 envs x 2 or 3 seats), a ragged batch, the learner's.
+B1_BF16_CASES = {"rollout": (1, 2048), "rollout_3p": (1, 3072), "ragged": (1, 13), "learner": (80, 128)}
+# At one step, B1 bf16 against the plain bf16 version, in bfloat16 ulps at
+# the scale of each output (its largest value): one rounding of float32 sums
+# taken in another order moves an output by at most one ulp.
+BF16_STEP_ULPS = 1.0
+# BF16_RULES, at the learner shape over F64_SEEDS inputs, each held to
+# F64_FACTOR times the plain bf16 version's distance to float64:
+#  (a) the outputs against the same function in float64 on the bf16-rounded
+#      inputs and weights, without the roundings of h and c;
+#  (b) every step's activations, h and c against a float64 step from the
+#      step's own stored previous state (B1's saved trajectory; the plain
+#      version's own);
+#  (c) B2's backward kernel (dG, dh0, dc0 of each layer) against float64 BPTT
+#      over B1's saved trajectory, beside the plain float32 recurrence over
+#      the same tensors (the final grads are rounded to bf16 for bf16 inputs,
+#      which would hide the kernel's own float32 sums).
+# Grads against (a)'s reference are reported and not gated: over 80 steps on
+# these weights a bf16 rounding that flips grows to O(1) (the grads of the
+# rounded function lie 2.4x their largest value from the unrounded one's,
+# scripts/torch_lstm_error_spread.py --dtype bfloat16), so that ratio swings
+# between 0.2x and 5.6x from draw to draw whatever the kernel does.
+BF16_RULES = ("outputs", "steps", "backward")
+# A bf16 sgd_update through the kernels against the plain versions: the
+# roundings of h and c flip where float32 sums differ in order, and a flip
+# grows over the 80 steps, so the gap is bf16's, not float32's. Measured:
+# 1.3e-5, 1.2e-4 and 2.2e-4 in the first full-width run (PERF.md).
+SGD_REL_TOL_BF16 = {"loss": 1e-3, "grad_norm": 1e-2, "priority": 1e-2}
 
 
 def emit(obj):
@@ -117,11 +175,11 @@ def fail(msg):
     sys.exit(1)
 
 
-def bound(flops, nbytes):
-    """Least time: the larger of operations over the float32 rate and bytes
-    (inputs read once, outputs written once) over the memory rate. Returns
-    (ms, "operations" or "bytes")."""
-    t_ops, t_bytes = flops / H100_F32_FLOPS, nbytes / H100_BYTES_PER_S
+def bound(flops, nbytes, peak=H100_F32_FLOPS):
+    """Least time: the larger of operations over the rate `peak` (float32 by
+    default) and bytes (inputs read once, outputs written once) over the
+    memory rate. Returns (ms, "operations" or "bytes")."""
+    t_ops, t_bytes = flops / peak, nbytes / H100_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -132,6 +190,59 @@ def lstm_words(T, B, H, L):
 
 def lstm_flops(T, B, H, L):
     return 2.0 * T * L * B * (2 * H) * (4 * H)
+
+
+def flat3(result):
+    """(outs, (hT, cT)) -> [outs, hT, cT]."""
+    return [result[0], *result[1]]
+
+
+def bf16_ulp(x):
+    """The spacing of bfloat16 numbers at |x| (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(max(abs(x), 2.0 ** -126))) - 7)
+
+
+def bwd_gaps(torch, kernel, plain, params, hidden, saved, cot):
+    """For each layer from the top, the largest distance of the backward
+    recurrence's dG, dh0 and dc0 (the kernel's and the plain float32
+    version's) from float64 over the same saved trajectory, each relative to
+    its largest float64 value; every layer gets the float64 reference's
+    dout, in float32 for the two under test."""
+    gaps = {}
+    dout = cot[0].double()
+    for layer in reversed(range(len(params))):
+        p = params[layer]
+        args32 = (dout.float().contiguous(), cot[1][layer].float().contiguous(), cot[2][layer].float().contiguous(),
+                  saved.act[layer], saved.cseq[layer], hidden[1][layer], p["w_hh"])
+        ref = plain(dout, cot[1][layer].double(), cot[2][layer].double(), saved.act[layer].double(),
+                    saved.cseq[layer].double(), hidden[1][layer].double(), p["w_hh"].double())
+        for who, got in (("B2", kernel(*args32)), ("plain", plain(*args32))):
+            for part, a, r in zip(("dG", "dh0", "dc0"), got, ref):
+                gaps[f"{part}{layer}.{who}"] = float((a.double() - r).abs().max() / r.abs().max())
+        dout = ref[0] @ p["w_ih"].double().t()
+    return gaps
+
+
+def step_gaps(torch, params, xs, hidden, saved):
+    """Largest distance, over layers and steps, of the stored activations,
+    h and c of a saved trajectory from a float64 step taken from the stored
+    previous h and c (the bfloat16-rounded weights and inputs in float64)."""
+    gaps = {"act": 0.0, "h": 0.0, "c": 0.0}
+    x = xs
+    for layer, p in enumerate(params):
+        p64 = {k: v.double() for k, v in p.items()}
+        hseq, cseq = saved.hseq[layer], saved.cseq[layer]
+        h_prev = torch.cat([hidden[0][layer][None], hseq[:-1]]).double()
+        c_prev = torch.cat([hidden[1][layer][None].to(cseq.dtype), cseq[:-1]]).double()
+        gates = x.double() @ p64["w_ih"] + h_prev @ p64["w_hh"] + p64["b"]
+        i, f, g, o = gates.chunk(4, dim=-1)
+        i, f, g, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
+        c = f * c_prev + i * g
+        for name, stored, ref in (("act", saved.act[layer], torch.cat([i, f, g, o], dim=-1)),
+                                  ("h", hseq, o * torch.tanh(c)), ("c", cseq, c)):
+            gaps[name] = max(gaps[name], float((stored.double() - ref).abs().max()))
+        x = hseq
+    return gaps
 
 
 def device_ms(torch, fn, flush=None, iters=20, warmup=3):
@@ -195,7 +306,7 @@ def main():
     from hanabi_sad_tpu_torch.ops import build
     from hanabi_sad_tpu_torch.ops import sample_batch as sb
     from hanabi_sad_tpu_torch.ops.lstm_seq import (
-        LstmSeqDiff, lstm_bwd_kernel, lstm_seq_diff, lstm_seq_kernel, lstm_seq_plain)
+        LstmSeqDiff, lstm_bwd_kernel, lstm_bwd_recurrence_plain, lstm_seq_diff, lstm_seq_kernel, lstm_seq_plain)
     from hanabi_sad_tpu_torch.replay import prioritized as replay_mod
     from hanabi_sad_tpu_torch.tools import loaders
     from hanabi_sad_tpu_torch.train import checkpoint as ckpt
@@ -208,11 +319,14 @@ def main():
 
     def reset_counts():
         lstm_seq_kernel.reset()
-        lstm_bwd_kernel.launches = b3.launches = LstmSeqDiff.calls = 0
+        lstm_bwd_kernel.reset()
+        b3.launches = LstmSeqDiff.calls = 0
 
     def counts():
         return {"b1": lstm_seq_kernel.launches, **{f"b1_{k}": v for k, v in lstm_seq_kernel.launches_by_kernel.items()},
-                "b2": LstmSeqDiff.calls, "b2_bwd": lstm_bwd_kernel.launches, "b3": b3.launches}
+                "b1_bf16": lstm_seq_kernel.launches_by_dtype["bf16"], "b2": LstmSeqDiff.calls,
+                "b2_bwd": lstm_bwd_kernel.launches, "b2_bwd_bf16": lstm_bwd_kernel.launches_by_dtype["bf16"],
+                "b3": b3.launches}
 
     # 1. device
     t0 = time.time()
@@ -339,6 +453,99 @@ def main():
         fail(f"two calls on the same inputs gave different bits: {deterministic}")
     b2_max_err = max(max(worst["B2"].values()), *b2_grad_rel.values())
 
+    # B1 and B2's bfloat16 routes. At the one-step shapes (rollout, 2 and 3
+    # players, and a ragged batch) against the plain bf16 version within
+    # BF16_STEP_ULPS; at the learner shape over F64_SEEDS inputs, against
+    # float64 by the rules at BF16_RULES; two calls give the same bits.
+    pb = [{k: v.bfloat16() for k, v in p.items()} for p in lstm_params]
+    bf16_errors = {}
+    with torch.no_grad():
+        for case, (T, B) in B1_BF16_CASES.items():
+            if case == "learner":
+                continue
+            xs, h0, c0 = (t.bfloat16() for t in (randn(T, B, H), randn(L, B, H, scale=0.5),
+                                                    randn(L, B, H, scale=0.5)))
+            ys_k = flat3(lstm_seq_kernel(pb, xs, (h0, c0)))
+            again = flat3(lstm_seq_kernel(pb, xs, (h0, c0)))
+            ys_p = flat3(lstm_seq_plain(pb, xs, (h0, c0)))
+            torch.cuda.synchronize()
+            ulps = max(float((a.float() - b.float()).abs().max()) / bf16_ulp(float(b.float().abs().max()))
+                       for a, b in zip(ys_k, ys_p))
+            bf16_errors[case] = max(float((a.float() - b.float()).abs().max()) for a, b in zip(ys_k, ys_p))
+            deterministic[f"B1_bf16_{case}"] = all(torch.equal(a, b) for a, b in zip(ys_k, again))
+            emit({"phase": "check", "kernel": "B1 bf16", "case": case, "T": T, "B": B, "H": H, "L": L,
+                  "max_abs_err": bf16_errors[case], "ulps_at_scale": ulps, "tol_ulps": BF16_STEP_ULPS})
+            if not ulps <= BF16_STEP_ULPS:
+                fail(f"B1 bf16 disagrees with its plain version at {case}: {ulps} ulps > {BF16_STEP_ULPS}")
+
+    T, B = B1_BF16_CASES["learner"]
+    bworst = {}
+    b2_is_b1_bf16 = True
+    for seed in range(F64_SEEDS):
+        g = torch.Generator().manual_seed(seed)
+        r = lambda *shape, scale=1.0: (scale * torch.randn(*shape, generator=g)).to(dev).bfloat16()
+        xs, h0, c0 = r(T, B, H), r(L, B, H, scale=0.5), r(L, B, H, scale=0.5)
+        cot = (r(T, B, H), r(L, B, H), r(L, B, H))
+        with torch.no_grad():
+            b1_k = lstm_seq_kernel(pb, xs, (h0, c0), save=True)
+            b1_p = lstm_seq_plain(pb, xs, (h0, c0), save=True)
+        readings = {}
+        # (a) outputs against float64 without the roundings of h and c
+        ys_k, grads_k = fwd_bwd(lstm_seq_diff, *leaves_of(pb, xs, h0, c0, dtype=torch.bfloat16), cot)
+        ys_p, grads_p = fwd_bwd(lstm_seq_plain, *leaves_of(pb, xs, h0, c0, dtype=torch.bfloat16), cot)
+        ys_64, grads_64 = fwd_bwd(lstm_seq_plain, *leaves_of(pb, xs, h0, c0, dtype=torch.float64), cot)
+        b2_is_b1_bf16 &= all(torch.equal(a, b) for a, b in zip(ys_k, flat3(b1_k[:2])))
+        for who, ys in (("B1", flat3(b1_k[:2])), ("B2", ys_k), ("plain", ys_p)):
+            readings[f"out.{who}"] = max(largest_gap(y, ref) for y, ref in zip(ys, ys_64))
+        for n, gk, gp, ref in zip(names, grads_k, grads_p, grads_64):
+            readings[f"grad_unrounded.{n}.B2"] = largest_gap(gk, ref, rel=True)
+            readings[f"grad_unrounded.{n}.plain"] = largest_gap(gp, ref, rel=True)
+        # (b) each step from its own stored previous state, against a float64 step
+        for who, saved in (("B1", b1_k[2]), ("plain", b1_p[2])):
+            for k, v in step_gaps(torch, pb, xs, (h0, c0), saved).items():
+                readings[f"step.{k}.{who}"] = v
+        # (c) B2's backward kernel (its bf16 entry point) over B1's saved
+        # trajectory against float64 BPTT over the same tensors, beside the
+        # plain float32 recurrence: dG, dh0 and dc0 of each layer, every layer
+        # fed the float64 reference's dout
+        for k, v in bwd_gaps(torch, lstm_bwd_kernel, lstm_bwd_recurrence_plain, pb, (h0, c0), b1_k[2],
+                             cot).items():
+            readings[f"bwd.{k}"] = v
+        if seed == 0:
+            with torch.no_grad():
+                again = lstm_seq_kernel(pb, xs, (h0, c0))
+            ys_k2, grads_k2 = fwd_bwd(lstm_seq_diff, *leaves_of(pb, xs, h0, c0, dtype=torch.bfloat16), cot)
+            deterministic["B1_bf16_learner"] = all(torch.equal(a, b) for a, b in zip(flat3(b1_k[:2]), flat3(again)))
+            deterministic["B2_bf16_learner"] = all(torch.equal(a, b) for a, b in zip(
+                ys_k + list(grads_k), ys_k2 + list(grads_k2)))
+        torch.cuda.synchronize()
+        for k, v in readings.items():
+            bworst[k] = max(bworst.get(k, 0.0), v)
+        del b1_k, b1_p, ys_k, grads_k, ys_p, grads_p, ys_64, grads_64
+    bf16_ratio = {"out.B1": bworst["out.B1"] / bworst["out.plain"],
+                  "out.B2": bworst["out.B2"] / bworst["out.plain"]}
+    for part in ("act", "h", "c"):
+        bf16_ratio[f"step.{part}.B1"] = bworst[f"step.{part}.B1"] / max(bworst[f"step.{part}.plain"], 1e-30)
+    for layer in range(L):
+        for part in ("dG", "dh0", "dc0"):
+            bf16_ratio[f"bwd.{part}{layer}.B2"] = (bworst[f"bwd.{part}{layer}.B2"]
+                                                  / max(bworst[f"bwd.{part}{layer}.plain"], 1e-30))
+    unrounded = {n: bworst[f"grad_unrounded.{n}.B2"] / max(bworst[f"grad_unrounded.{n}.plain"], 1e-30)
+                 for n in names}
+    emit({"phase": "check", "kernel": "B1 and B2 bf16", "T": T, "B": B, "H": H, "L": L, "seeds": F64_SEEDS,
+          "largest_gap_to_f64": bworst, "ratio_to_plain": bf16_ratio, "factor": F64_FACTOR,
+          "grad_ratio_to_plain_unrounded_reference_not_gated": unrounded,
+          "b2_forward_equals_B1": b2_is_b1_bf16, "deterministic": deterministic})
+    if not b2_is_b1_bf16:
+        fail("B2's bf16 forward differs from B1's on the same inputs")
+    bad = {k: v for k, v in bf16_ratio.items() if not v <= F64_FACTOR}
+    if bad:
+        fail(f"bf16: further than {F64_FACTOR}x the plain bf16 version from float64: {bad}")
+    if not all(deterministic.values()):
+        fail(f"two calls on the same inputs gave different bits: {deterministic}")
+    bf16_errors["learner"] = bworst["out.B1"]
+    b2_bf16_max_err = max(v for k, v in bworst.items() if k.startswith("bwd.") and k.endswith(".B2"))
+
     # B3 on random replay fields, indices out of range read as JAX reads them
     sizes = dict(obs_dim=838, num_actions=21, hand_size=5)
 
@@ -352,15 +559,16 @@ def main():
 
     b3_errors = []
 
-    def b3_check(case, fields, idx, rows=None):
-        out_k = b3(*fields, idx, **sizes)
-        out_p = sb.sample_batch_plain(*fields, idx if rows is None else rows, **sizes)
+    def b3_check(case, fields, idx, rows=None, shape=sizes):
+        out_k = b3(*fields, idx, **shape)
+        out_p = sb.sample_batch_plain(*fields, idx if rows is None else rows, **shape)
         torch.cuda.synchronize()
         b3_errors.append(max(float((a.double() - b.double()).abs().max()) for a, b in zip(out_k, out_p)))
         same = {f: bool(torch.equal(a, b)) for f, a, b in zip(out_k._fields, out_k, out_p)}
         contiguous = all(t.is_contiguous() for t in out_k)
         emit({"phase": "check", "kernel": "B3", "case": case, "B": int(idx.numel()),
-              "distinct": int(idx.unique().numel()), "equal": same, "contiguous": contiguous})
+              "Pi": int(fields[0].shape[2]), "distinct": int(idx.unique().numel()), "equal": same,
+              "contiguous": contiguous})
         if not (all(same.values()) and contiguous):
             fail(f"B3 disagrees with its plain version on {case}: {same}, contiguous {contiguous}")
 
@@ -423,6 +631,57 @@ def main():
     timing["B2_learner"] = {"T": T, "B": B, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                             "bound_ms": b_ms, "bound_by": b_by,
                             "launches_per_call": {k: v for k, v in per_call.items() if k != "b3"}}
+
+    # B1 and B2's bf16 routes: beside each, its plain bf16 version, cuDNN
+    # nn.LSTM in bf16 (the library), the float32 kernel at the same shape,
+    # and the bound at the tensor cores' bf16 rate with bf16 bytes (the least
+    # time for the work, whatever implements it).
+    cudnn_bf16 = torch.nn.LSTM(H, H, num_layers=L).to(dev, torch.bfloat16)
+    with torch.no_grad():
+        for name, t in cudnn.named_parameters():
+            getattr(cudnn_bf16, name).copy_(t)
+    cudnn_bf16.flatten_parameters()
+    for case in ("rollout", "rollout_3p", "learner"):
+        T, B = B1_BF16_CASES[case]
+        xs, h0, c0 = randn(T, B, H), randn(L, B, H, scale=0.5), randn(L, B, H, scale=0.5)
+        xb, hb, cb = xs.bfloat16(), h0.bfloat16(), c0.bfloat16()
+        with torch.no_grad():
+            lib_err = float((cudnn_bf16(xb, (hb, cb))[0].float() - lstm_seq_plain(pb, xb, (hb, cb))[0].float())
+                            .abs().max())
+            reset_counts()
+            lstm_seq_kernel(pb, xb, (hb, cb))
+            per_call = counts()
+            ms = cuda_ms(torch, lambda: lstm_seq_kernel(pb, xb, (hb, cb)))
+            f32_ms = cuda_ms(torch, lambda: lstm_seq_kernel(lstm_params, xs, (h0, c0)))
+            plain_ms = cuda_ms(torch, lambda: lstm_seq_plain(pb, xb, (hb, cb)))
+            library_ms = cuda_ms(torch, lambda: cudnn_bf16(xb, (hb, cb)))
+        b_ms, b_by = bound(lstm_flops(T, B, H, L), 2.0 * lstm_words(T, B, H, L), peak=H100_BF16_FLOPS)
+        timing[f"B1_bf16_{case}"] = {
+            "T": T, "B": B, "ms": ms, "f32_kernel_ms": f32_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_max_abs_err": lib_err, "bound_ms": b_ms, "bound_by": b_by,
+            "launches_per_call": {k: v for k, v in per_call.items() if k.startswith("b1")}}
+    T, B = B1_BF16_CASES["learner"]
+    xb = xs.bfloat16()
+    cotb = [c.bfloat16() for c in cot]
+    ps_b, ts_b, leaves_b = leaves_of(pb, xb, hb, cb, dtype=torch.bfloat16)
+    cudnn_leaves_b = [t.detach().clone().requires_grad_(True) for t in (xb, hb, cb)]
+
+    def cudnn_bf16_fwd_bwd():
+        out, (h_t, c_t) = cudnn_bf16(cudnn_leaves_b[0], (cudnn_leaves_b[1], cudnn_leaves_b[2]))
+        return torch.autograd.grad((out, h_t, c_t), cudnn_leaves_b + list(cudnn_bf16.parameters()), cotb)
+
+    reset_counts()
+    fwd_bwd(lstm_seq_diff, ps_b, ts_b, leaves_b, cotb)
+    per_call = counts()
+    ms = cuda_ms(torch, lambda: fwd_bwd(lstm_seq_diff, ps_b, ts_b, leaves_b, cotb), iters=10, warmup=2)
+    plain_ms = cuda_ms(torch, lambda: fwd_bwd(lstm_seq_plain, ps_b, ts_b, leaves_b, cotb), iters=10, warmup=2)
+    library_ms = cuda_ms(torch, cudnn_bf16_fwd_bwd, iters=10, warmup=2)
+    b_ms, b_by = bound(3 * lstm_flops(T, B, H, L), 2.0 * 2 * lstm_words(T, B, H, L), peak=H100_BF16_FLOPS)
+    timing["B2_bf16_learner"] = {"T": T, "B": B, "ms": ms, "f32_kernel_ms": timing["B2_learner"]["ms"],
+                                 "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms,
+                                 "bound_by": b_by, "launches_per_call": {k: v for k, v in per_call.items()
+                                                                         if k != "b3"}}
+    del ps_b, ts_b, leaves_b, cudnn_leaves_b
 
     # B3 at the flagship shape: 64 of 65,536 episodes of [80, 2, 110] bytes
     # into the Batch, with L2 flushed before each call and without
@@ -507,9 +766,10 @@ def main():
     # target's forward and B2's forward, 2 L launches each (T > 1), and B2's
     # backward, L launches
     rollout = T * 2 * L
-    expect_collect = {"b1": rollout, "b1_gates": rollout, "b1_recurrence": 0, "b2": 0, "b2_bwd": 0, "b3": 0}
+    expect_collect = {"b1": rollout, "b1_gates": rollout, "b1_recurrence": 0, "b1_bf16": 0, "b2": 0,
+                      "b2_bwd": 0, "b2_bwd_bf16": 0, "b3": 0}
     expect_train = {"b1": rollout + U * 4 * L, "b1_gates": rollout + U * 2 * L, "b1_recurrence": U * 2 * L,
-                    "b2": U, "b2_bwd": U * L, "b3": U}
+                    "b1_bf16": 0, "b2": U, "b2_bwd": U * L, "b2_bwd_bf16": 0, "b3": U}
 
     reset_counts()
     torch.cuda.synchronize()
@@ -560,34 +820,41 @@ def main():
 
     # One sgd_update from one state and one presampled batch, through the
     # kernels and through the plain versions.
-    idx, is_w = replay_mod.sample_indices(state.replay, setup.replay, tcfg.batchsize,
-                                          generator=torch.Generator(device=dev).manual_seed(4))
-    rows = replay_mod.gather_rows(state.replay, idx)
-
-    def copy_state():
-        opt = state.opt_state
-        return state._replace(
-            params=AgentParams(online=clone_params(state.params.online), target=clone_params(state.params.target)),
+    def copy_of(st):
+        opt = st.opt_state
+        return st._replace(
+            params=AgentParams(online=clone_params(st.params.online), target=clone_params(st.params.target)),
             opt_state=opt._replace(mu=[m.clone() for m in opt.mu], nu=[v.clone() for v in opt.nu]),
-            replay=state.replay._replace(weight=state.replay.weight.clone()),
+            replay=st.replay._replace(weight=st.replay.weight.clone()),
         )
 
-    s_k, m_k = learner.sgd_update(setup, optimizer, copy_state(), presampled=(rows, is_w, idx))
-    kernel_sample_batch = sb.sample_batch
-    lstm_mod.lstm_seq, sb.sample_batch = lstm_seq_plain, sb.sample_batch_plain
-    try:
-        before = counts()
-        s_p, m_p = learner.sgd_update(setup, optimizer, copy_state(), presampled=(rows, is_w, idx))
-        if counts() != before:
-            fail("the plain sgd_update launched a kernel")
-    finally:
-        lstm_mod.lstm_seq, sb.sample_batch = kernel_lstm_seq, kernel_sample_batch
-    p_k, p_p = s_k.replay.weight[idx], s_p.replay.weight[idx]
-    gaps = {
-        "loss": abs(float(m_k["loss"]) - float(m_p["loss"])) / abs(float(m_p["loss"])),
-        "grad_norm": abs(float(m_k["grad_norm"]) - float(m_p["grad_norm"])) / abs(float(m_p["grad_norm"])),
-        "priority": float((p_k - p_p).abs().max()) / float(p_p.abs().max()),
-    }
+    def kernels_vs_plain(setup, optimizer, st, seed):
+        """One sgd_update from copies of `st` on one presampled batch, through
+        the kernels and through the plain versions; returns the batch, the
+        kernel path's metrics and the relative gaps."""
+        idx, is_w = replay_mod.sample_indices(st.replay, setup.replay, setup.train.batchsize,
+                                              generator=torch.Generator(device=dev).manual_seed(seed))
+        rows = replay_mod.gather_rows(st.replay, idx)
+        s_k, m_k = learner.sgd_update(setup, optimizer, copy_of(st), presampled=(rows, is_w, idx))
+        kernel_sample_batch = sb.sample_batch
+        lstm_mod.lstm_seq, sb.sample_batch = lstm_seq_plain, sb.sample_batch_plain
+        try:
+            before = counts()
+            s_p, m_p = learner.sgd_update(setup, optimizer, copy_of(st), presampled=(rows, is_w, idx))
+            if counts() != before:
+                fail("the plain sgd_update launched a kernel")
+        finally:
+            lstm_mod.lstm_seq, sb.sample_batch = kernel_lstm_seq, kernel_sample_batch
+        p_k, p_p = s_k.replay.weight[idx], s_p.replay.weight[idx]
+        gaps = {
+            "loss": abs(float(m_k["loss"]) - float(m_p["loss"])) / abs(float(m_p["loss"])),
+            "grad_norm": abs(float(m_k["grad_norm"]) - float(m_p["grad_norm"])) / abs(float(m_p["grad_norm"])),
+            "priority": float((p_k - p_p).abs().max()) / float(p_p.abs().max()),
+        }
+        return (rows, is_w, idx), m_k, gaps
+
+    (rows, is_w, idx), m_k, gaps = kernels_vs_plain(setup, optimizer, state, seed=4)
+    copy_state = lambda: copy_of(state)
     emit({"phase": "train", "check": "sgd_update kernels vs plain", "loss": float(m_k["loss"]),
           "grad_norm": float(m_k["grad_norm"]), "rel_gap": gaps, "rel_tol": SGD_REL_TOL})
     bad = {k: v for k, v in gaps.items() if not v <= SGD_REL_TOL[k]}
@@ -663,10 +930,148 @@ def main():
           "restore_s": restore_s, "num_update": s_b.num_update, "same_bits": same})
     if not all(same.values()):
         fail(f"sgd_update after save and restore differs: {same}")
-    del restored, s_a, s_b
+    del restored, s_a, s_b, state, rows
+    torch.cuda.empty_cache()
 
-    # 7. kernels: launches are the 3 train chunks' (the eval's B1 count is on its line)
+    def collect_phase(label, setup, state, expect_collect):
+        """One collect-only chunk that must fill the cut burn-in, with its
+        launch counts."""
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        state, stats = learner.collect_only(setup, state)
+        torch.cuda.synchronize()
+        got = counts()
+        emit({"phase": label, "chunk": "collect", "replay_size": int(state.replay.size),
+              **{k: float(v) for k, v in stats.items()}, "wall_s": time.time() - t0, "launches": got})
+        if got != expect_collect:
+            fail(f"{label}: collect chunk launches {got}, expected {expect_collect}")
+        if int(state.replay.size) < setup.train.burn_in_frames:
+            fail(f"{label}: one collect chunk did not fill the cut burn-in")
+        return state
+
+    def train_phase(label, setup, state, optimizer, chunks, expect_train, bands):
+        """`chunks` train chunks, each line with its launch counts; fails on
+        other counts, a non-finite metric or a metric outside `bands`.
+        Returns (state, the launches summed over the chunks, their wall
+        seconds)."""
+        sums, walls = dict.fromkeys(expect_train, 0), []
+        for chunk in range(chunks):
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            state, metrics = learner.train_chunk(setup, optimizer, state)
+            torch.cuda.synchronize()
+            walls.append(time.time() - t0)
+            got = counts()
+            row = {k: float(v) for k, v in metrics.items()}
+            emit({"phase": label, "chunk": chunk, **row, "wall_s": walls[-1], "launches": got,
+                  "num_update": state.num_update, "card": smi_line})
+            for k in sums:
+                sums[k] += got[k]
+            if got != expect_train:
+                fail(f"{label}: train chunk {chunk} launches {got}, expected {expect_train}")
+            if not all(math.isfinite(v) for v in row.values()):
+                fail(f"{label}: non-finite metric in train chunk {chunk}: {row}")
+            for k, (lo, hi) in bands.items():
+                if not lo <= row[k] <= hi:
+                    fail(f"{label}: train chunk {chunk}: {k} = {row[k]} outside the band [{lo}, {hi}]")
+        return state, sums, walls
+
+    # 6b. train bf16: the flagship run's configuration, compute_dtype
+    # bfloat16, warm-started as in phase 6 with the same burn-in cut; 3 train
+    # chunks held to BANDS (they span the log's bf16 epochs), beside the log.
+    cfg = make_config("sad_2p", pred_weight=0.25, burn_in_frames=2048, compute_dtype="bfloat16")
+    setup = learner.make_setup(cfg)
+    state = selfplay.load_model(FLAGSHIP, learner.init_train_state(setup, setup.train.seed, dev))
+    optimizer = learner.make_optimizer(setup.train)
+    emit({"phase": "train_bf16", "config": {"preset": "sad_2p", "pred_weight": 0.25, "compute_dtype": "bfloat16",
+                                            "burn_in_frames": 2048, **shape},
+          "flagship_log_bf16": FLAGSHIP_LOG_BF16})
+    state = collect_phase("train_bf16", setup, state, dict(expect_collect, b1_bf16=rollout))
+    state, bf16_totals, bf16_walls = train_phase(
+        "train_bf16", setup, state, optimizer, 3, dict(expect_train, b1_bf16=expect_train["b1"],
+                                                       b2_bwd_bf16=U * L), BANDS)
+    _, m_k, gaps = kernels_vs_plain(setup, optimizer, state, seed=5)
+    emit({"phase": "train_bf16", "check": "sgd_update kernels vs plain", "loss": float(m_k["loss"]),
+          "grad_norm": float(m_k["grad_norm"]), "rel_gap": gaps, "rel_tol": SGD_REL_TOL_BF16,
+          "params_float32": all(t.dtype == torch.float32 for t in learner.param_leaves(state.params.online))})
+    bad = {k: v for k, v in gaps.items() if not v <= SGD_REL_TOL_BF16[k]}
+    if bad:
+        fail(f"bf16 sgd_update through the kernels differs from the plain versions: {bad}")
+    del state
+    torch.cuda.empty_cache()
+
+    # 6c. train iql: preset iql_2p at full width from scratch (1024 envs,
+    # 128 items a batch, one item per player, so B3 at Pi = 1); burn-in cut
+    # to 2048 items, which one collect chunk fills.
+    cfg = make_config("iql_2p", burn_in_frames=2048)
+    setup = learner.make_setup(cfg)
+    state = learner.init_train_state(setup, setup.train.seed, dev)
+    optimizer = learner.make_optimizer(setup.train)
+    iql_shape = {"num_envs": setup.train.num_envs, "batch_items": setup.train.batchsize, "T": setup.train.max_len,
+                 "hidden": setup.train.rnn_hid_dim, "replay_capacity": setup.train.replay_buffer_size,
+                 "Pi": setup.replay.num_player, "obs_dim": setup.replay.obs_dim,
+                 "bytes_per_step": setup.replay.bytes_per_step}
+    emit({"phase": "train_iql", "config": {"preset": "iql_2p", "burn_in_frames": 2048, **iql_shape}})
+    iql_sizes = dict(obs_dim=setup.replay.obs_dim, num_actions=setup.replay.num_actions,
+                     hand_size=setup.replay.hand_size)
+    state = collect_phase("train_iql", setup, state, expect_collect)
+    idx, _ = replay_mod.sample_indices(state.replay, setup.replay, setup.train.batchsize,
+                                       generator=torch.Generator(device=dev).manual_seed(7))
+    idx[64:72] = idx[0:8]
+    r = state.replay
+    b3_check("IQL replay after one collect chunk, Pi = 1, duplicate indices",
+             (r.packed, r.action, r.reward, r.bootstrap, r.seq_len), idx, shape=iql_sizes)
+    state, iql_totals, iql_walls = train_phase("train_iql", setup, state, optimizer, 2, expect_train, {})
+    _, m_k, gaps = kernels_vs_plain(setup, optimizer, state, seed=6)
+    emit({"phase": "train_iql", "check": "sgd_update kernels vs plain", "loss": float(m_k["loss"]),
+          "grad_norm": float(m_k["grad_norm"]), "rel_gap": gaps, "rel_tol": SGD_REL_TOL})
+    bad = {k: v for k, v in gaps.items() if not v <= SGD_REL_TOL[k]}
+    if bad:
+        fail(f"IQL sgd_update through the kernels differs from the plain versions: {bad}")
+    del state, r
+    torch.cuda.empty_cache()
+
+    # 6d. eval iql 3p: the 3-player IQL checkpoint, 1000 games, through B1
+    # and through the plain LSTM on the same decks.
+    policy3 = loaders.load_any(IQL_3P, device=dev)
+    decks3 = shuffled_decks(GameConfig(players=3), num_game, torch.Generator().manual_seed(seed))
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    mean3_k, perfect3_k, scores3_k, _ = evaluate([policy3] * 3, num_game, seed, num_steps=num_steps,
+                                                 decks=decks3, device=dev)
+    wall3_k = time.time() - t0
+    eval3_counts = counts()
+    lstm_mod.lstm_seq = lstm_seq_plain
+    try:
+        t0 = time.time()
+        mean3_p, _, scores3_p, _ = evaluate([policy3] * 3, num_game, seed, num_steps=num_steps, decks=decks3,
+                                            device=dev)
+        wall3_p = time.time() - t0
+    finally:
+        lstm_mod.lstm_seq = kernel_lstm_seq
+    if counts() != eval3_counts:
+        fail("the plain 3-player eval launched a kernel")
+    s3k = torch.tensor(scores3_k, dtype=torch.float64)
+    agree3 = float((s3k == torch.tensor(scores3_p, dtype=torch.float64)).double().mean())
+    sem3 = float(s3k.std(unbiased=False) / num_game ** 0.5)
+    emit({"phase": "eval_iql_3p", "checkpoint": IQL_3P, "num_game": num_game, "seed": seed, "players": 3,
+          "kernel": {"mean": mean3_k, "sem": sem3, "perfect": perfect3_k, "wall_s": wall3_k},
+          "plain": {"mean": mean3_p, "wall_s": wall3_p}, "agree": agree3, "launches": eval3_counts,
+          "jax_reference": {"mean": JAX_IQL_3P_MEAN, "sem": JAX_IQL_3P_SEM}, "band": IQL_3P_BAND})
+    if eval3_counts["b1"] == 0:
+        fail("the 3-player eval did not launch B1")
+    if agree3 < 0.99:
+        fail(f"3-player eval: kernel and plain paths agree on only {agree3:.4f} of games")
+    if abs(mean3_k - JAX_IQL_3P_MEAN) > IQL_3P_BAND:
+        fail(f"3-player eval: kernel mean {mean3_k} outside {JAX_IQL_3P_MEAN} +/- {IQL_3P_BAND}")
+
+    # 7. kernels: launches are the 3 train chunks' of phase 6 (the eval's B1
+    # count is on its line), and of phase 6b for the bf16 routes
     b1, b2, b3t = timing["B1_learner"], timing["B2_learner"], timing["B3_flagship"]
+    b1b, b2b = timing["B1_bf16_learner"], timing["B2_bf16_learner"]
     emit({"kernels": [
         {"name": "lstm_seq (B1)", "route": "cuda", "source": "hanabi_sad_tpu_torch/ops/csrc/lstm_seq.cu",
          "replaces": "hanabi_sad_tpu/ops/experimental/pallas_lstm.py:166",
@@ -689,8 +1094,24 @@ def main():
          "ms_unflushed": b3t["ms_unflushed"], "plain_ms_unflushed": b3t["plain_ms_unflushed"],
          "call_ms": b3t["call_ms"],
          "bound_ms": b3t["bound_ms"], "bound_by": b3t["bound_by"], "library_ms": None,
-         "shape": "64 of 65,536 episodes x [80, 2, 110] bytes -> Batch [80, 64, 2, 838 + 21 + 15]"},
-    ], "train_chunk_wall_s": train_walls})
+         "shape": "64 of 65,536 episodes x [80, 2, 110] bytes -> Batch [80, 64, 2, 838 + 21 + 15]",
+         "iql_launches": iql_totals["b3"], "iql_shape": iql_shape},
+        {"name": "lstm_seq bf16 (B1)", "route": "cuda", "source": "hanabi_sad_tpu_torch/ops/csrc/lstm_seq.cu",
+         "replaces": "hanabi_sad_tpu/ops/experimental/pallas_lstm.py:166",
+         "launches": bf16_totals["b1_bf16"], "max_abs_err": max(v for k, v in bf16_errors.items() if k != "learner"),
+         "learner_step_gap_to_f64": {k: bworst[f"step.{k}.B1"] for k in ("act", "h", "c")},
+         "ms": b1b["ms"], "plain_ms": b1b["plain_ms"], "bound_ms": b1b["bound_ms"], "bound_by": b1b["bound_by"],
+         "library_ms": b1b["library_ms"], "f32_kernel_ms": b1b["f32_kernel_ms"], "shape": "T=80 B=128 H=512 L=2",
+         "rollout_shape": timing["B1_bf16_rollout"], "rollout_3p_shape": timing["B1_bf16_rollout_3p"]},
+        {"name": "lstm_seq_diff bf16 (B2)", "route": "cuda",
+         "source": "hanabi_sad_tpu_torch/ops/csrc/lstm_bwd.cu",
+         "replaces": "hanabi_sad_tpu/ops/experimental/pallas_lstm.py:212",
+         "launches": bf16_totals["b2_bwd_bf16"], "calls": bf16_totals["b2"], "max_abs_err": b2_bf16_max_err,
+         "ms": b2b["ms"], "plain_ms": b2b["plain_ms"], "bound_ms": b2b["bound_ms"], "bound_by": b2b["bound_by"],
+         "library_ms": b2b["library_ms"], "f32_kernel_ms": b2b["f32_kernel_ms"],
+         "shape": "T=80 B=128 H=512 L=2, forward + backward"},
+    ], "train_chunk_wall_s": train_walls, "train_bf16_chunk_wall_s": bf16_walls,
+        "train_iql_chunk_wall_s": iql_walls, "iql_launches": iql_totals, "eval_iql_3p_launches": eval3_counts})
     print(f"# total seconds: {time.time() - t_all:.1f}", flush=True)
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})

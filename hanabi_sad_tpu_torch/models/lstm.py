@@ -1,11 +1,15 @@
 """Multi-layer LSTM (counterpart of `hanabi_sad_tpu/models/lstm.py`).
 
 Gate layout is torch-compatible (i, f, g, o order, separate input/hidden
-weights, one collapsed bias). `lstm_seq` (and `lstm_step` through it) routes:
+weights, one collapsed bias). `lstm_seq` (and `lstm_step` through it) runs in
+the dtype of xs, float32 or bfloat16: the weights (float32 params) and the
+hidden are cast to it once a call, as `pallas_lstm.py` casts them, and the
+final hidden comes back in the incoming hidden's dtype. It routes:
 
   * CUDA tensors, grad enabled and some input or weight requiring grad:
     kernel B2 (`ops/lstm_seq.py:lstm_seq_diff`), B1's forward keeping its
-    gates, and the BPTT backward kernel;
+    gates, and the BPTT backward kernel; autograd of the casts turns the
+    grads of bfloat16 weight copies into float32 param grads;
   * other CUDA tensors: kernel B1;
   * CPU tensors: the plain `_cell` loop, differentiated by autograd.
 """
@@ -57,17 +61,24 @@ def init_lstm(
 
 def lstm_seq(params: LSTMParams, xs: torch.Tensor, hidden: Hidden) -> Tuple[torch.Tensor, Hidden]:
     """Full sequence. xs: [T, B, in], hidden ([L, B, H] x 2) -> (outputs
-    [T, B, H], final hidden), routed as the module docstring says."""
+    [T, B, H] in xs's dtype, final hidden in hidden's dtype), routed as the
+    module docstring says."""
+    dt, hdt = xs.dtype, hidden[0].dtype
+    params = [{k: v.to(dt) for k, v in p.items()} for p in params]
+    hidden = (hidden[0].to(dt), hidden[1].to(dt))
     if xs.is_cuda and torch.is_grad_enabled():
         tensors = [xs, *hidden] + [t for p in params for t in p.values()]
         if any(t.requires_grad for t in tensors):
-            return lstm_seq_op.lstm_seq_diff(params, xs, hidden)
-    return lstm_seq_op.lstm_seq(params, xs, hidden)
+            outs, (h, c) = lstm_seq_op.lstm_seq_diff(params, xs, hidden)
+            return outs, (h.to(hdt), c.to(hdt))
+    outs, (h, c) = lstm_seq_op.lstm_seq(params, xs, hidden)
+    return outs, (h.to(hdt), c.to(hdt))
 
 
 def lstm_step(params: LSTMParams, x: torch.Tensor, hidden: Hidden) -> Tuple[torch.Tensor, Hidden]:
     """One time step through all layers. x: [B, in], hidden ([L, B, H] x 2).
-    Returns (top-layer output [B, H], new hidden)."""
+    Returns (top-layer output [B, H] in x's dtype, new hidden in the incoming
+    hidden's dtype), as the JAX package's `lstm_step`."""
     outs, hidden = lstm_seq(params, x[None], hidden)
     return outs[0], hidden
 

@@ -7,6 +7,11 @@ are an R2D2NetParams of torch tensors in the JAX package's layout (Linear
 `w` is [in, out]); every function is plain tensor code. `forward` is
 differentiable on the card too: its LSTM goes through kernel B2 when a
 gradient is wanted (`models/lstm.py`).
+
+`NetConfig.compute_dtype` is the JAX package's: the trunk and the LSTM run in
+it (float32 or bfloat16), the heads, the losses and the params stay float32,
+and the hidden that acting carries stays float32 (cast to the compute dtype
+for the step and back after it).
 """
 
 from __future__ import annotations
@@ -30,14 +35,17 @@ class NetConfig:
     hand_size: int = 5
     num_fc_layer: int = 1
     skip_connect: bool = False
-    # Only float32 compute is ported; the eval path runs in float32.
+    # Compute dtype of the trunk and the LSTM; params, heads and losses stay
+    # float32. The eval path runs in float32.
     compute_dtype: str = "float32"
 
     def __post_init__(self):
-        if self.compute_dtype == "bfloat16":
-            raise NotImplementedError("bfloat16 compute is not ported yet")
-        if self.compute_dtype != "float32":
-            raise ValueError(f"compute_dtype must be 'float32', got {self.compute_dtype!r}")
+        if self.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"compute_dtype must be 'float32' or 'bfloat16', got {self.compute_dtype!r}")
+
+    @property
+    def cdtype(self) -> torch.dtype:
+        return torch.bfloat16 if self.compute_dtype == "bfloat16" else torch.float32
 
 
 class R2D2NetParams(NamedTuple):
@@ -80,20 +88,24 @@ def init_r2d2_net(
     )
 
 
-def trunk(params: R2D2NetParams, x: torch.Tensor) -> torch.Tensor:
+def trunk(params: R2D2NetParams, x: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """relu(x @ w + b) per layer in `dtype`: the input and the weights are
+    cast to it."""
+    x = x.to(dtype)
     for layer in params.net:
-        x = torch.relu(x @ layer["w"] + layer["b"])
+        x = torch.relu(x @ layer["w"].to(dtype) + layer["b"].to(dtype))
     return x
 
 
 def _step(params: R2D2NetParams, cfg: NetConfig, priv_s: torch.Tensor, hid: Dict[str, torch.Tensor]):
-    """Trunk + one LSTM step; hid is batch-first {"h0","c0": [B, L, D]}."""
-    x = trunk(params, priv_s)
+    """Trunk + one LSTM step in the compute dtype; hid is batch-first
+    {"h0","c0": [B, L, D]} and keeps its dtype. Returns the float32 output."""
+    x = trunk(params, priv_s, cfg.cdtype)
     hidden = (hid["h0"].transpose(0, 1).contiguous(), hid["c0"].transpose(0, 1).contiguous())
     o, (h, c) = lstm_mod.lstm_step(params.lstm, x, hidden)
     if cfg.skip_connect:
         o = o + x
-    return o, {"h0": h.transpose(0, 1), "c0": c.transpose(0, 1)}
+    return o.float(), {"h0": h.transpose(0, 1), "c0": c.transpose(0, 1)}
 
 
 def act(
@@ -140,7 +152,7 @@ def forward(
     action: [T, B]. hid None -> zeros; else {"h0","c0": [L, B, D]}.
     Returns (qa [T,B], greedy_action [T,B], q [T,B,A], lstm_o [T,B,D])."""
     B = priv_s.shape[1]
-    x = trunk(params, priv_s)
+    x = trunk(params, priv_s, cfg.cdtype)
     if hid is None:
         hidden = lstm_mod.zero_hidden(cfg.num_lstm_layer, B, cfg.hid_dim, x.dtype, x.device)
     else:
@@ -148,6 +160,7 @@ def forward(
     o, _ = lstm_mod.lstm_seq(params.lstm, x.contiguous(), hidden)
     if cfg.skip_connect:
         o = o + x
+    o = o.float()
     a = o @ params.fc_a["w"] + params.fc_a["b"]
     v = o @ params.fc_v["w"] + params.fc_v["b"]
     q = duel(v, a, legal_move)

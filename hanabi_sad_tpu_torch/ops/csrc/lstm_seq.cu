@@ -1,5 +1,5 @@
-// Kernel B1: the multi-layer LSTM over a sequence, float32 in and out with
-// float32 accumulation, for Hopper (sm_90a). Two kernels:
+// Kernel B1: the multi-layer LSTM over a sequence, float32 or bfloat16 in
+// and out with float32 sums and cell, for Hopper (sm_90a). Two kernels:
 //
 //   lstm_gates_kernel       the gates product of SGEMM class, with the cell
 //                           update in its epilogue (CELL) or without it;
@@ -32,7 +32,10 @@
 // Bound: a forward does 2 * T * L * B * 2H * 4H operations in float32 outside
 // the tensor cores (67 TFLOP/s): 0.125 ms at the eval shape (T=1, B=1000,
 // H=512, L=2), 1.28 ms at the learner shape (T=80, B=128); bytes are a tenth
-// of that. No TF32: the float32 path stays float32 (plain FMA).
+// of that. No TF32: the float32 path stays float32 (plain FMA). The same work
+// in bfloat16 is bound by the tensor cores' bfloat16 rate (989 TFLOP/s), at
+// least 15x less; this bfloat16 route still runs the float32 FMA tiles on
+// the converted values, so it is bound like the float32 one.
 //
 // Design of the gates kernel: a 128 x 128 output tile per block (128 rows by
 // 32 hidden units x 4 gates, so a thread's 8 x 8 accumulators hold all four
@@ -55,10 +58,18 @@
 // launched cooperatively; with more rows than fit, each block takes several
 // row tiles a step.
 //
-// The kernels are templated on the element type of x, h, c and the weights
-// (float is the one instantiated); activations, Gx and the sums are float.
+// The kernels are templated on the element type of x, h, c and the weights,
+// float (lstm_*_f32) or __nv_bfloat16 (lstm_*_bf16); activations, Gx, the
+// sums and the cell are float. In bfloat16 they compute what pallas_lstm.py's
+// kernel computes for a bfloat16 xs: products of the bfloat16 values summed
+// in float, the bias added in float, the cell in float, and h and c rounded
+// to bfloat16 at every step, the next step reading the rounded values. The
+// saved cell states (save_c, cseq) are the rounded c, float(bf16(c)), the c
+// that the next step read, so that B2's backward differentiates the function
+// the forward computed (for float the same bits as c).
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "lstm_tile.cuh"
@@ -185,7 +196,7 @@ __global__ void __launch_bounds__(THREADS, CELL ? 2 : 1) lstm_gates_kernel(
       const int u = u0 + tx * 2 + e;
       float pre[4];
 #pragma unroll
-      for (int g = 0; g < 4; ++g) pre[g] = acc[i][2 * g + e] + static_cast<float>(bias[g * H + u]);
+      for (int g = 0; g < 4; ++g) pre[g] = acc[i][2 * g + e] + to_f32(bias[g * H + u]);
       if (!CELL) {
 #pragma unroll
         for (int g = 0; g < 4; ++g) gates_out[(size_t)row * G + g * H + u] = pre[g];
@@ -194,11 +205,11 @@ __global__ void __launch_bounds__(THREADS, CELL ? 2 : 1) lstm_gates_kernel(
       const size_t at = (size_t)row * H + u;
       const float ig = sigmoid_f(pre[0]), fg = sigmoid_f(pre[1]);
       const float gg = tanhf(pre[2]), og = sigmoid_f(pre[3]);
-      const float c_new = fg * static_cast<float>(c_prev[at]) + ig * gg;
-      const float h_new = og * tanhf(c_new);
-      c_out[at] = static_cast<Elem>(c_new);
-      h_out[at] = static_cast<Elem>(h_new);
-      if (y != nullptr) y[at] = static_cast<Elem>(h_new);
+      const float c_new = fg * to_f32(c_prev[at]) + ig * gg;
+      const Elem c_st = from_f32<Elem>(c_new), h_st = from_f32<Elem>(og * tanhf(c_new));
+      c_out[at] = c_st;
+      h_out[at] = h_st;
+      if (y != nullptr) y[at] = h_st;
       if (save_act != nullptr) {
         float* s = save_act + (size_t)row * G + u;
         s[0] = ig;
@@ -206,7 +217,7 @@ __global__ void __launch_bounds__(THREADS, CELL ? 2 : 1) lstm_gates_kernel(
         s[2 * H] = gg;
         s[3 * H] = og;
       }
-      if (save_c != nullptr) save_c[at] = c_new;
+      if (save_c != nullptr) save_c[at] = to_f32(c_st);
     }
   }
 }
@@ -260,12 +271,12 @@ __global__ void __launch_bounds__(THREADS, 1) lstm_recurrence_kernel(
         const size_t at = (size_t)row * H + U;
         const float ig = sigmoid_f(pre[0]), fg = sigmoid_f(pre[1]);
         const float gg = tanhf(pre[2]), og = sigmoid_f(pre[3]);
-        const float c_prev = static_cast<float>(t == 0 ? c0[at] : c_last[at]);
+        const float c_prev = to_f32(t == 0 ? c0[at] : c_last[at]);
         const float c_new = fg * c_prev + ig * gg;
-        const float h_new = og * tanhf(c_new);
-        c_last[at] = static_cast<Elem>(c_new);
-        hseq[(size_t)t * B * H + at] = static_cast<Elem>(h_new);
-        if (t == T - 1) h_last[at] = static_cast<Elem>(h_new);
+        const Elem c_st = from_f32<Elem>(c_new), h_st = from_f32<Elem>(og * tanhf(c_new));
+        c_last[at] = c_st;
+        hseq[(size_t)t * B * H + at] = h_st;
+        if (t == T - 1) h_last[at] = h_st;
         if (act != nullptr) {
           float* s = act + ((size_t)t * B + row) * G + U;
           s[0] = ig;
@@ -273,12 +284,50 @@ __global__ void __launch_bounds__(THREADS, 1) lstm_recurrence_kernel(
           s[2 * H] = gg;
           s[3 * H] = og;
         }
-        if (cseq != nullptr) cseq[(size_t)t * B * H + at] = c_new;
+        if (cseq != nullptr) cseq[(size_t)t * B * H + at] = to_f32(c_st);
       }
       __syncthreads();  // the sums are read before the ring is refilled
     }
     if (t + 1 < T) grid.sync();
   }
+}
+
+// Launches lstm_gates_kernel<Elem> on `stream` (see lstm_gates_f32).
+template <typename Elem>
+int launch_gates(const Elem* a0, const Elem* w0, int k0, const Elem* a1, const Elem* w1, int k1,
+                 const Elem* bias, const Elem* c_prev, float* gates_out, Elem* h_out, Elem* c_out, Elem* y,
+                 float* save_act, float* save_c, int M, int H, void* stream) {
+  const bool cell = c_prev != nullptr;
+  if (!cell) k1 = 0;
+  if (M <= 0 || H <= 0 || H % GU != 0 || k0 <= 0 || k0 % GK != 0 || k1 < 0 || k1 % GK != 0)
+    return (int)cudaErrorInvalidValue;
+  if (cell && (k1 == 0 || h_out == nullptr || c_out == nullptr)) return (int)cudaErrorInvalidValue;
+  if (!cell && gates_out == nullptr) return (int)cudaErrorInvalidValue;
+  const dim3 grid((M + GM - 1) / GM, H / GU);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (cell)
+    lstm_gates_kernel<Elem, true><<<grid, THREADS, 0, s>>>(a0, w0, k0, a1, w1, k1, bias, c_prev, nullptr,
+                                                          h_out, c_out, y, save_act, save_c, M, H);
+  else
+    lstm_gates_kernel<Elem, false><<<grid, THREADS, 0, s>>>(a0, w0, k0, nullptr, nullptr, 0, bias, nullptr,
+                                                           gates_out, nullptr, nullptr, nullptr, nullptr,
+                                                           nullptr, M, H);
+  return (int)cudaGetLastError();
+}
+
+// Launches lstm_recurrence_kernel<Elem> cooperatively on `stream` (see
+// lstm_recurrence_f32).
+template <typename Elem>
+int launch_recurrence(const float* gx, const Elem* h0, const Elem* c0, const Elem* w_hh, Elem* hseq,
+                      Elem* h_last, Elem* c_last, float* act, float* cseq, int T, int B, int H, void* stream) {
+  if (T <= 0 || B <= 0 || H <= 0 || H % GU != 0) return (int)cudaErrorInvalidValue;
+  void* args[] = {(void*)&gx, (void*)&h0, (void*)&c0, (void*)&w_hh, (void*)&hseq, (void*)&h_last,
+                  (void*)&c_last, (void*)&act, (void*)&cseq, (void*)&T, (void*)&B, (void*)&H};
+  const cudaError_t err = launch_persistent((const void*)lstm_recurrence_kernel<Elem>,
+                                            (B + ROWS - 1) / ROWS, H / UNITS,
+                                            persistent_smem_bytes(H, 4 * UNITS), args, (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -292,22 +341,19 @@ extern "C" int lstm_gates_f32(const float* a0, const float* w0, int k0, const fl
                               const float* w1, int k1, const float* bias, const float* c_prev,
                               float* gates_out, float* h_out, float* c_out, float* y,
                               float* save_act, float* save_c, int M, int H, void* stream) {
-  const bool cell = c_prev != nullptr;
-  if (!cell) k1 = 0;
-  if (M <= 0 || H <= 0 || H % GU != 0 || k0 <= 0 || k0 % GK != 0 || k1 < 0 || k1 % GK != 0)
-    return (int)cudaErrorInvalidValue;
-  if (cell && (k1 == 0 || h_out == nullptr || c_out == nullptr)) return (int)cudaErrorInvalidValue;
-  if (!cell && gates_out == nullptr) return (int)cudaErrorInvalidValue;
-  const dim3 grid((M + GM - 1) / GM, H / GU);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (cell)
-    lstm_gates_kernel<float, true><<<grid, THREADS, 0, s>>>(a0, w0, k0, a1, w1, k1, bias, c_prev, nullptr,
-                                                           h_out, c_out, y, save_act, save_c, M, H);
-  else
-    lstm_gates_kernel<float, false><<<grid, THREADS, 0, s>>>(a0, w0, k0, nullptr, nullptr, 0, bias, nullptr,
-                                                            gates_out, nullptr, nullptr, nullptr, nullptr,
-                                                            nullptr, M, H);
-  return (int)cudaGetLastError();
+  return launch_gates<float>(a0, w0, k0, a1, w1, k1, bias, c_prev, gates_out, h_out, c_out, y, save_act,
+                             save_c, M, H, stream);
+}
+
+// lstm_gates_f32 with bfloat16 x, h, c, y and weights; gates_out, save_act
+// and save_c stay float.
+extern "C" int lstm_gates_bf16(const __nv_bfloat16* a0, const __nv_bfloat16* w0, int k0,
+                               const __nv_bfloat16* a1, const __nv_bfloat16* w1, int k1,
+                               const __nv_bfloat16* bias, const __nv_bfloat16* c_prev, float* gates_out,
+                               __nv_bfloat16* h_out, __nv_bfloat16* c_out, __nv_bfloat16* y,
+                               float* save_act, float* save_c, int M, int H, void* stream) {
+  return launch_gates<__nv_bfloat16>(a0, w0, k0, a1, w1, k1, bias, c_prev, gates_out, h_out, c_out, y,
+                                     save_act, save_c, M, H, stream);
 }
 
 // Launches lstm_recurrence_kernel cooperatively on `stream` (see above).
@@ -316,14 +362,17 @@ extern "C" int lstm_gates_f32(const float* a0, const float* w0, int k0, const fl
 extern "C" int lstm_recurrence_f32(const float* gx, const float* h0, const float* c0,
                                    const float* w_hh, float* hseq, float* h_last, float* c_last,
                                    float* act, float* cseq, int T, int B, int H, void* stream) {
-  if (T <= 0 || B <= 0 || H <= 0 || H % GU != 0) return (int)cudaErrorInvalidValue;
-  void* args[] = {(void*)&gx, (void*)&h0, (void*)&c0, (void*)&w_hh, (void*)&hseq, (void*)&h_last,
-                  (void*)&c_last, (void*)&act, (void*)&cseq, (void*)&T, (void*)&B, (void*)&H};
-  const cudaError_t err = launch_persistent((const void*)lstm_recurrence_kernel<float>,
-                                            (B + ROWS - 1) / ROWS, H / UNITS,
-                                            persistent_smem_bytes(H, 4 * UNITS), args, (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return launch_recurrence<float>(gx, h0, c0, w_hh, hseq, h_last, c_last, act, cseq, T, B, H, stream);
+}
+
+// lstm_recurrence_f32 with bfloat16 h0, c0, W_hh and outputs; gx, act and
+// cseq stay float.
+extern "C" int lstm_recurrence_bf16(const float* gx, const __nv_bfloat16* h0, const __nv_bfloat16* c0,
+                                    const __nv_bfloat16* w_hh, __nv_bfloat16* hseq, __nv_bfloat16* h_last,
+                                    __nv_bfloat16* c_last, float* act, float* cseq, int T, int B, int H,
+                                    void* stream) {
+  return launch_recurrence<__nv_bfloat16>(gx, h0, c0, w_hh, hseq, h_last, c_last, act, cseq, T, B, H,
+                                          stream);
 }
 
 // The multiple of which H must be.

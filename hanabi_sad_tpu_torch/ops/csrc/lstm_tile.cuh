@@ -14,6 +14,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
@@ -31,6 +32,19 @@ constexpr int RING_FLOATS = WARPS * STAGES * STAGE_FLOATS;
 
 __device__ __forceinline__ float sigmoid_f(float v) { return 1.0f / (1.0f + expf(-v)); }
 
+// The element types of the kernels: float and bfloat16. Sums, activations
+// and the cell are float whatever the element type; a value is rounded to
+// the element type (nearest even) where it is stored.
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename Elem>
+__device__ __forceinline__ Elem from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) { return __float2bfloat16_rn(v); }
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -41,20 +55,20 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Copies into shared memory, converted to float. The generic version loads
-// and converts synchronously (any element type with a conversion to float);
+// and converts synchronously (bfloat16: 2-byte loads, no alignment needed);
 // float copies bytes with cp.async. `four_l2` reads through L2 only
 // (cp.async.cg / __ldcg): it is used for data that other blocks of the same
 // launch wrote before a grid barrier, which a stale L1 line must not hide.
 template <typename Elem>
 struct Stage {
-  __device__ static void one(float* s, const Elem* g) { *s = static_cast<float>(*g); }
+  __device__ static void one(float* s, const Elem* g) { *s = to_f32(*g); }
   __device__ static void four(float* s, const Elem* g) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s[j] = static_cast<float>(g[j]);
+    for (int j = 0; j < 4; ++j) s[j] = to_f32(g[j]);
   }
   __device__ static void four_l2(float* s, const Elem* g) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s[j] = static_cast<float>(__ldcg(g + j));
+    for (int j = 0; j < 4; ++j) s[j] = to_f32(__ldcg(g + j));
   }
 };
 

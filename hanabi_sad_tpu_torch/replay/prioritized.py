@@ -240,6 +240,17 @@ def update_priority(
     """Learner feedback, in place: weight[idx] = priority^alpha. Duplicate
     indices carry identical values (duplicate rows of a batch are identical
     inputs to a deterministic per-row computation), so the write order does
-    not matter."""
-    state.weight[idx] = priority.detach().float().pow(cfg.alpha)
+    not matter.
+
+    Indices read as the JAX package's `weight.at[idx].set` reads them: one in
+    [-cap, -1] counts from the end, and the write of one outside [-cap, cap)
+    is dropped. The writes go through a copy with one spare slot at the end,
+    which takes the dropped ones, so that no index check waits on the card."""
+    cap = state.weight.shape[0]
+    idx = idx.long()
+    idx = torch.where(idx < 0, idx + cap, idx)
+    idx = torch.where((idx >= 0) & (idx < cap), idx, cap)
+    spare = torch.cat([state.weight, state.weight.new_zeros(1)])
+    spare[idx] = priority.detach().float().pow(cfg.alpha)
+    state.weight.copy_(spare[:cap])
     return state

@@ -12,7 +12,8 @@ Per chunk of T steps (T = max_len):
      the unfinished tail becomes the next carry. Completed episodes land in
      up to `slots_per_env` fixed slots per env (overflow episodes are dropped
      and counted);
-  3. n-step returns, bootstrap and the exact online-target priorities from
+  3. for IQL, each slot split into one item per player (split_players);
+  4. n-step returns, bootstrap and the exact online-target priorities from
      the rollout's own online and target Q streams (fused_exact_priorities),
      then replay.add_packed with slot validity compaction.
 
@@ -236,6 +237,24 @@ def assemble_episodes(
         carry_len=new_len,
     )
     return actor, episodes
+
+
+def split_players(ep: AssembledEpisodes) -> AssembledEpisodes:
+    """IQL item topology: each slot becomes P independent per-player items,
+    env-major, then player (the JAX package's `split_players`). Per-player
+    fields become [M * P, T, 1, ...]; reward, seq_len and valid repeat."""
+    M, T, P = ep.action.shape
+
+    def per_player(x):  # [M, T, P, ...] -> [M * P, T, 1, ...]
+        x = x.transpose(1, 2)  # [M, P, T, ...]
+        return x.reshape((M * P, T, 1) + tuple(x.shape[3:]))
+
+    rep = lambda x: x.repeat_interleave(P, dim=0)
+    return ep._replace(
+        packed=per_player(ep.packed), action=per_player(ep.action), greedy=per_player(ep.greedy),
+        qa=per_player(ep.qa), tqa=per_player(ep.tqa),
+        reward=rep(ep.reward), seq_len=rep(ep.seq_len), valid=rep(ep.valid),
+    )
 
 
 def _per_slot(x: torch.Tensor, cfg: AgentConfig) -> torch.Tensor:

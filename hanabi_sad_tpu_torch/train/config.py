@@ -3,8 +3,9 @@
 `TrainConfig`, `derived`, `generate_explore_eps`, `PRESETS` and `make_config`
 are the JAX package's, field for field, so a flag line or a saved config
 means the same in both packages. The port trains what its modules cover so
-far: 2-player VDN in the continuous rollout with fused exact priorities, in
-float32. A field that selects anything else raises NotImplementedError.
+far: VDN or IQL at 2-5 players in the continuous rollout with fused exact
+priorities, in float32 or bfloat16 compute, with `profile_chunks`. A field
+that selects anything else raises NotImplementedError.
 
 The loop alternates a rollout chunk (num_envs envs, max_len steps) with
 `num_update_per_chunk` gradient updates. The replay ratio, train frames per
@@ -99,23 +100,20 @@ class TrainConfig:
         if self.rollout_mode not in ("aligned", "continuous"):
             raise ValueError(f"rollout_mode must be 'aligned' or 'continuous', got {self.rollout_mode!r}")
         not_ported = {
-            "method='iql'": self.method == "iql",
             "rollout_mode='aligned'": self.rollout_mode == "aligned",
             "shuffle_obs": self.shuffle_obs,
             "shuffle_color": self.shuffle_color,
-            "compute_dtype='bfloat16'": self.compute_dtype == "bfloat16",
             "continuous_exact_priority=False": not self.continuous_exact_priority,
             "exact_priority_in_rollout=False": not self.exact_priority_in_rollout,
             "stacked_td": self.stacked_td,
             "snapshot_sampling": self.snapshot_sampling,
-            "profile_chunks": self.profile_chunks > 0,
             "multihost": self.multihost,
         }
         for name, asked in not_ported.items():
             if asked:
                 raise NotImplementedError(f"{name} is not ported yet")
-        if self.compute_dtype != "float32":
-            raise ValueError(f"compute_dtype must be 'float32', got {self.compute_dtype!r}")
+        if self.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"compute_dtype must be 'float32' or 'bfloat16', got {self.compute_dtype!r}")
 
     @property
     def vdn(self) -> bool:

@@ -4,8 +4,9 @@ rollout mode).
 One `train_chunk` call:
   1. rolls one continuous chunk of `max_len` steps of epsilon-greedy
      self-play with the current online params, assembles the finished
-     episodes, computes their exact initial priorities from the rollout's
-     online and target Q streams and ring-writes them into the replay;
+     episodes (for IQL, one item per player), computes their exact initial
+     priorities from the rollout's online and target Q streams and
+     ring-writes them into the replay;
   2. runs `num_update_per_chunk` gradient updates, each sampling the replay
      (kernel B3), applying the IS-weighted Huber TD + aux loss (the online
      forward through kernel B2, the target forward through B1), clipping the
@@ -46,7 +47,7 @@ class Setup:
     env: EnvConfig
     eval_env: EnvConfig
     agent: AgentConfig
-    eval_agent: AgentConfig  # vdn=False clone for evaluation
+    eval_agent: AgentConfig  # vdn=False, float32 clone for evaluation
     replay: ReplayConfig
 
     @property
@@ -102,9 +103,12 @@ def make_setup(cfg: TrainConfig) -> Setup:
         alpha=cfg.priority_exponent,
         beta=cfg.priority_weight,
     )
+    # The eval runs in float32 whatever the compute dtype (the JAX package's
+    # eval_agent keeps the training net's; see ROADMAP.md, deviations).
+    eval_net = dataclasses.replace(net, compute_dtype="float32")
     return Setup(
         train=cfg, env=env, eval_env=eval_env, agent=agent,
-        eval_agent=dataclasses.replace(agent, vdn=False), replay=replay,
+        eval_agent=dataclasses.replace(agent, vdn=False, net=eval_net), replay=replay,
     )
 
 
@@ -215,6 +219,8 @@ def collect_into_replay(setup: Setup, state: TrainState) -> Tuple[TrainState, Di
         state.params, setup.agent, setup.env, state.actor, cfg.max_len, generator=state.env_gen
     )
     actor, episodes = continuous.assemble_episodes(actor, stream, cfg.slots_per_env)
+    if not cfg.vdn:
+        episodes = continuous.split_players(episodes)
     n_step_r, bootstrap, _ = continuous.episode_priorities(episodes, setup.agent)
     priority = continuous.fused_exact_priorities(episodes, setup.agent, n_step_r, bootstrap)
     replay = replay_mod.add_packed(

@@ -13,7 +13,13 @@ random streams; the replay refills through burn-in) or a params payload
 (both nets). Each eval writes the top 5 params payloads by score
 (`model0.pkl` .. `model4.pkl`) and `latest.pkl`, a `train_state` payload;
 every 50 epochs also `model_epoch{N}.pkl`. Payloads are in the JAX package's
-format (`train/checkpoint.py`), so either package loads them.
+format (`train/checkpoint.py`), so either package loads them. With
+`--profile_chunks N`, train chunks 2 .. 1 + N (chunk 1 builds the kernels)
+are traced with torch.profiler into a Chrome trace,
+`<save_dir>/profile/trace.json`, written when chunk 1 + N ends or, if the run
+ends first, at its end. `--compute_dtype bfloat16` runs the trunk and the
+LSTM in bfloat16 (B1 and B2's bfloat16 routes on the card); `--preset iql_2p`
+(or `--method iql`) trains IQL, at 2-5 players with `--num_player`.
 """
 
 from __future__ import annotations
@@ -75,6 +81,27 @@ def load_model(path: str, state: learner.TrainState) -> learner.TrainState:
     return state._replace(params=ckpt.load_params_into(payload, state.params))
 
 
+def _start_trace(device: torch.device) -> torch.profiler.profile:
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def _stop_trace(prof: torch.profiler.profile, device: torch.device, save_dir: str) -> str:
+    """Ends the trace once the device has finished its work, and writes it;
+    returns the trace's directory."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    prof.stop()
+    out = os.path.join(save_dir, "profile")
+    os.makedirs(out, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(out, "trace.json"))
+    return out
+
+
 def train(cfg: TrainConfig, *, max_chunks: int = 0, device=None) -> dict:
     """Run training on `device` (default `cuda`), printing to stdout and to
     `<save_dir>/train.log`. max_chunks > 0 stops after that many train
@@ -129,6 +156,7 @@ def _train(cfg: TrainConfig, max_chunks: int, device: torch.device) -> dict:
     count_factor = cfg.num_player if cfg.vdn else 1
     summary: Dict = {}
     total_chunks = 0
+    trace = None
     for epoch in range(cfg.num_epoch):
         print(f"beginning of epoch: {epoch}")
         print(get_mem_usage())
@@ -139,9 +167,15 @@ def _train(cfg: TrainConfig, max_chunks: int, device: torch.device) -> dict:
         # epoch, not one per chunk and metric.
         epoch_metrics = []
         for _ in range(chunks_per_epoch):
+            # Trace steady-state chunks (chunk 1 builds the kernels) on request.
+            if cfg.profile_chunks > 0 and total_chunks + 1 == 2:
+                trace = _start_trace(device)
             state, metrics = learner.train_chunk(setup, optimizer, state)
             epoch_metrics.append(metrics)
             total_chunks += 1
+            if trace is not None and total_chunks >= 1 + cfg.profile_chunks:
+                print(f"profiler trace written to {_stop_trace(trace, device, cfg.save_dir)}")
+                trace = None
             if max_chunks and total_chunks >= max_chunks:
                 break
         rows = [{k: float(v) for k, v in m.items()} for m in epoch_metrics]
@@ -185,6 +219,9 @@ def _train(cfg: TrainConfig, max_chunks: int, device: torch.device) -> dict:
         print("==========")
         if last:
             break
+    if trace is not None:
+        # The run ended before chunk 1 + profile_chunks: write what was traced.
+        print(f"profiler trace written to {_stop_trace(trace, device, cfg.save_dir)} (truncated run)")
     return summary
 
 

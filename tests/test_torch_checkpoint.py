@@ -18,6 +18,7 @@ driver's saving and resume (`train.selfplay`) and its utilities
   * selfplay writes train.log, the top-k payloads, latest.pkl and the
     forced 50-epoch snapshot, and resumes from latest.pkl."""
 
+import dataclasses
 import pickle
 from pathlib import Path
 
@@ -282,3 +283,72 @@ def test_selfplay_saves_snapshots_and_resumes(tmp_path, capsys):
         device="cpu")
     assert "resumed at update 51" in capsys.readouterr().out
     assert resumed["num_update"] == 52
+
+
+def test_a_bf16_port_payload_round_trips_both_ways(tmp_path):
+    """A port train_state payload whose config says bfloat16: the port
+    restores it exactly into a bfloat16 state, and the JAX package restores
+    it into its own bfloat16 state (params and moments bit for bit, float32);
+    a params payload with that config evaluates in the JAX package."""
+    setup, state = small_port_state(seed=4, compute_dtype="bfloat16")
+    config = dataclasses.asdict(setup.train)
+    assert config["compute_dtype"] == "bfloat16"
+    path = str(tmp_path / "latest.pkl")
+    tckpt.save(path, tckpt.train_state_payload(state, config))
+    payload = tckpt.load(path)
+    tcfg = tconfig.TrainConfig(**payload["config"])
+    back = tckpt.restore_train_state(payload, tlearner.init_train_state(tlearner.make_setup(tcfg), 9, "cpu"))
+    ours = tlearner.param_leaves(state.params.online) + state.opt_state.mu + state.opt_state.nu
+    for a, b in zip(ours, tlearner.param_leaves(back.params.online) + back.opt_state.mu + back.opt_state.nu):
+        assert a.dtype == b.dtype == torch.float32 and torch.equal(a, b)
+
+    jcfg = jconfig.TrainConfig(**raw_payload(path)["config"])
+    assert jcfg.compute_dtype == "bfloat16"
+    jstate = jckpt.restore_train_state(raw_payload(path), jlearner.init_train_state(
+        jlearner.make_setup(jcfg), jax.random.PRNGKey(2)))
+    adam = jstate.opt_state[1][0]
+    theirs = (jax.tree_util.tree_leaves(jstate.params.online) + jax.tree_util.tree_leaves(adam.mu)
+              + jax.tree_util.tree_leaves(adam.nu))
+    for t, j in zip(ours, theirs):
+        assert np.asarray(j).dtype == np.float32
+        np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+
+    ppath = str(tmp_path / "model0.pkl")
+    tckpt.save(ppath, tckpt.params_payload(state.params.online, config))
+    mean, _, _ = jeval_model.main(["--weight", ppath, "--num_game", "4"])
+    assert 0 <= mean <= 25
+
+
+def test_a_jax_bf16_train_state_restores_into_a_bf16_port_state(tmp_path):
+    """A train_state payload that the JAX package wrote after one bfloat16
+    update: the port builds its bfloat16 setup from the payload's config,
+    restores params and moments bit for bit, and takes a bfloat16 update."""
+    small = dict(pred_weight=0.25, rnn_hid_dim=32, replay_buffer_size=64, num_envs=2, max_len=8, batchsize=4,
+                 compute_dtype="bfloat16")
+    jsetup = jlearner.make_setup(jconfig.make_config("sad_2p", **small))
+    tsetup0 = tlearner.make_setup(tconfig.make_config("sad_2p", **small))
+    jstate = jlearner.init_train_state(jsetup, jax.random.PRNGKey(5))
+    jstate, _ = fill_replays(jsetup, tsetup0, jstate, tlearner.init_train_state(tsetup0, 0, "cpu"), M=10, seed=4)
+    idx = jnp.asarray([1, 4], jnp.int32)
+    jopt = jlearner.make_optimizer(jsetup.train)
+    jstate, _ = jax.jit(lambda s, p: jlearner.sgd_update(jsetup, jopt, s, presampled=p))(
+        jstate, (jrep.gather_rows(jstate.replay, idx), jnp.ones(2), idx))
+    path = str(tmp_path / "jax_latest.pkl")
+    jckpt.save(path, jckpt.train_state_payload(jstate, dataclasses.asdict(jsetup.train)))
+
+    payload = tckpt.load(path)
+    tcfg = tconfig.TrainConfig(**payload["config"])
+    assert tcfg.compute_dtype == "bfloat16"
+    tsetup = tlearner.make_setup(tcfg)
+    assert tsetup.agent.net.cdtype == torch.bfloat16
+    tstate = tckpt.restore_train_state(payload, tlearner.init_train_state(tsetup, 0, "cpu"))
+    adam = jstate.opt_state[1][0]
+    for t, j in zip(tlearner.param_leaves(tstate.params.online) + tstate.opt_state.mu + tstate.opt_state.nu,
+                    jax.tree_util.tree_leaves(jstate.params.online) + jax.tree_util.tree_leaves(adam.mu)
+                    + jax.tree_util.tree_leaves(adam.nu)):
+        assert t.dtype == torch.float32
+        np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+    assert tstate.num_update == 1
+    _, tstate = fill_replays(jsetup, tsetup, jstate, tstate, M=10, seed=4)
+    tstate, metrics = tlearner.sgd_update(tsetup, tlearner.make_optimizer(tcfg), tstate)
+    assert all(np.isfinite(float(v)) for v in metrics.values()) and tstate.num_update == 2

@@ -18,7 +18,7 @@ from hanabi_sad_tpu_torch.models import lstm as tlstm
 from hanabi_sad_tpu_torch.models import r2d2_net as tnet
 from hanabi_sad_tpu_torch.ops import sample_batch as sb
 from hanabi_sad_tpu_torch.ops.lstm_seq import (
-    LstmSeqDiff, lstm_bwd_kernel, lstm_seq_diff, lstm_seq_kernel, lstm_seq_plain)
+    LstmSeqDiff, lstm_bwd_kernel, lstm_bwd_recurrence_plain, lstm_seq_diff, lstm_seq_kernel, lstm_seq_plain)
 from hanabi_sad_tpu_torch.replay import prioritized as trep
 from hanabi_sad_tpu_torch.tools import loaders
 from hanabi_sad_tpu_torch.train import learner, selfplay
@@ -424,3 +424,231 @@ def test_selfplay_trains_on_card(card, tmp_path):
     out = selfplay.train(cfg, max_chunks=2, device=card)
     assert out["num_update"] == 4 and np.isfinite(out["metrics"]["loss"])
     assert sb.sample_batch_kernel.launches == launches + 4
+
+
+# --- bfloat16 (B1 and B2's bf16 entry points) and IQL ----------------------
+
+IQL_3P = str(Path(__file__).resolve().parents[1] / "docs/runs/iql_3p_r5_model4.pkl")
+
+
+def bf16_ulp(x):
+    """The spacing of bfloat16 numbers at |x| (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(max(abs(x), 2.0 ** -126))) - 7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B", [(1, 2048), (1, 3072), (1, 13)])
+def test_b1_bf16_matches_plain_at_one_step_on_card(card, T, B):
+    """B1's bf16 entry points at the rollout shapes (2 and 3 players) and a
+    ragged batch against the plain bf16 version: every output within 1
+    bfloat16 ulp at its scale (one rounding of float32 sums taken in another
+    order), through `models/lstm.py` from float32 weights and hidden, whose
+    dtype the result keeps."""
+    params, xs, h0, c0 = lstm_inputs(T, B, 512, 2, seed=11, device=card)
+    xs = xs.bfloat16()
+    launches = dict(lstm_seq_kernel.launches_by_dtype)
+    out, (h, c) = tlstm.lstm_seq(params, xs, (h0, c0))
+    ref, (rh, rc) = lstm_seq_plain(params, xs, (h0, c0))
+    torch.cuda.synchronize()
+    assert lstm_seq_kernel.launches_by_dtype["bf16"] == launches["bf16"] + 2
+    assert lstm_seq_kernel.launches_by_dtype["f32"] == launches["f32"]
+    assert out.dtype == torch.bfloat16 and h.dtype == c.dtype == torch.float32
+    for a, b in ((out, ref), (h, rh), (c, rc)):
+        assert float((a.float() - b.float()).abs().max()) <= bf16_ulp(float(b.float().abs().max()))
+
+
+def step_gaps(params, xs, hidden, saved):
+    """Largest distance of a saved trajectory's stored activations, h and c
+    from a float64 step taken from the stored previous h and c."""
+    gaps = {"act": 0.0, "h": 0.0, "c": 0.0}
+    x = xs
+    for layer, p in enumerate(params):
+        p64 = {k: v.double() for k, v in p.items()}
+        hseq, cseq = saved.hseq[layer], saved.cseq[layer]
+        h_prev = torch.cat([hidden[0][layer][None], hseq[:-1]]).double()
+        c_prev = torch.cat([hidden[1][layer][None].to(cseq.dtype), cseq[:-1]]).double()
+        i, f, g, o = (x.double() @ p64["w_ih"] + h_prev @ p64["w_hh"] + p64["b"]).chunk(4, dim=-1)
+        i, f, g, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
+        c = f * c_prev + i * g
+        for name, stored, ref in (("act", saved.act[layer], torch.cat([i, f, g, o], dim=-1)),
+                                  ("h", hseq, o * torch.tanh(c)), ("c", cseq, c)):
+            gaps[name] = max(gaps[name], float((stored.double() - ref).abs().max()))
+        x = hseq
+    return gaps
+
+
+def bwd_gaps(params, hidden, saved, cot):
+    """Per layer from the top: the largest distance of B2's backward kernel's
+    dG, dh0, dc0 (bf16 entry point) and the plain float32 recurrence's from
+    float64 over the same saved trajectory, relative to the largest float64
+    value; every layer gets the float64 reference's dout."""
+    gaps = {"B2": [], "plain": []}
+    dout = cot[0].double()
+    for layer in reversed(range(len(params))):
+        p = params[layer]
+        args32 = (dout.float().contiguous(), cot[1][layer].float().contiguous(), cot[2][layer].float().contiguous(),
+                  saved.act[layer], saved.cseq[layer], hidden[1][layer], p["w_hh"])
+        ref = lstm_bwd_recurrence_plain(dout, cot[1][layer].double(), cot[2][layer].double(),
+                                        saved.act[layer].double(), saved.cseq[layer].double(),
+                                        hidden[1][layer].double(), p["w_hh"].double())
+        for who, got in (("B2", lstm_bwd_kernel(*args32)), ("plain", lstm_bwd_recurrence_plain(*args32))):
+            gaps[who] += [float((a.double() - r).abs().max() / r.abs().max()) for a, r in zip(got, ref)]
+        dout = ref[0] @ p["w_ih"].double().t()
+    return np.array(gaps["B2"]), np.array(gaps["plain"])
+
+
+def f64_gaps_bf16(params, seed, card):
+    """For one bf16 input at [80, 128, 512] (chip_smoke.py's BF16_RULES):
+    (a) the largest distance of B1's, B2's and the plain bf16 version's
+    outputs to float64 on the rounded inputs and weights without the
+    roundings of h and c; (b) of every step's stored activations, h and c to
+    a float64 step from its own stored previous state (B1's trajectory, the
+    plain version's own); (c) of B2's backward kernel's dG, dh0, dc0 and the
+    plain float32 recurrence's, over B1's saved trajectory, to float64 BPTT
+    over the same tensors (`bwd_gaps`). Also whether B2's forward equals
+    B1's."""
+    rng = np.random.RandomState(seed)
+    L, (T, B, H) = len(params), (80, 128, 512)
+    bf = lambda a: torch.from_numpy(a.astype(np.float32)).to(card).bfloat16()
+    xs, h0, c0 = bf(rng.randn(T, B, H)), bf(0.5 * rng.randn(L, B, H)), bf(0.5 * rng.randn(L, B, H))
+    cot = [bf(rng.randn(T, B, H)), bf(rng.randn(L, B, H)), bf(rng.randn(L, B, H))]
+    pb = [{k: v.bfloat16() for k, v in p.items()} for p in params]
+    gap = lambda a, r: float((a.double() - r).abs().max())
+    with torch.no_grad():
+        k_out, (k_h, k_c), saved = lstm_seq_kernel(pb, xs, (h0, c0), save=True)
+        p_out, (p_h, p_c), p_saved = lstm_seq_plain(pb, xs, (h0, c0), save=True)
+        r_out, (r_h, r_c) = lstm_seq_plain([{k: v.double() for k, v in p.items()} for p in pb], xs.double(),
+                                           (h0.double(), c0.double()))
+        bwd_k, bwd_p = bwd_gaps(pb, (h0, c0), saved, cot)
+    ps = [{k: v.clone().requires_grad_(True) for k, v in p.items()} for p in pb]
+    ts = [t.clone().requires_grad_(True) for t in (xs, h0, c0)]
+    d_out, (d_h, d_c) = lstm_seq_diff(ps, ts[0], (ts[1], ts[2]))
+    ref = (r_out, r_h, r_c)
+    return {
+        "B1": max(gap(a, r) for a, r in zip((k_out, k_h, k_c), ref)),
+        "B2": max(gap(a.detach(), r) for a, r in zip((d_out, d_h, d_c), ref)),
+        "plain": max(gap(a, r) for a, r in zip((p_out, p_h, p_c), ref)),
+        "step_B1": step_gaps(pb, xs, (h0, c0), saved), "step_plain": step_gaps(pb, xs, (h0, c0), p_saved),
+        "B2_bwd": bwd_k, "plain_bwd": bwd_p,
+        "b2_is_b1": all(torch.equal(a.detach(), b) for a, b in zip((d_out, d_h, d_c), (k_out, k_h, k_c))),
+    }
+
+
+@pytest.mark.cuda
+def test_b1_and_b2_bf16_against_float64_on_card(card):
+    """The float32 rule carried over to bfloat16 (chip_smoke.py's
+    BF16_RULES): at the learner shape on the flagship's LSTM weights, over 8
+    inputs, B1's and B2's outputs, every stored step of B1, and B2's
+    backward kernel lie no further from their float64 references than twice
+    the plain bf16 version (the plain float32 recurrence for the backward)."""
+    params = flagship_lstm(card)
+    worst = {}
+    for seed in range(8):
+        reading = f64_gaps_bf16(params, seed, card)
+        assert reading.pop("b2_is_b1")
+        for who in ("step_B1", "step_plain"):
+            for k, v in reading.pop(who).items():
+                worst[f"{who}.{k}"] = max(worst.get(f"{who}.{k}", 0.0), v)
+        for k, v in reading.items():
+            worst[k] = np.maximum(worst.get(k, 0.0), v)
+    for who in ("B1", "B2"):
+        assert worst[who] <= 2.0 * worst["plain"], (who, worst[who], worst["plain"])
+    for part in ("act", "h", "c"):
+        assert worst[f"step_B1.{part}"] <= 2.0 * worst[f"step_plain.{part}"], (part, worst)
+    assert np.all(worst["B2_bwd"] <= 2.0 * worst["plain_bwd"]), worst["B2_bwd"] / worst["plain_bwd"]
+
+
+@pytest.mark.cuda
+def test_b1_and_b2_bf16_give_the_same_bits_twice_on_card(card):
+    params, xs, h0, c0 = lstm_inputs(80, 128, 512, 2, seed=12, device=card)
+    pb = [{k: v.bfloat16() for k, v in p.items()} for p in params]
+    xs, h0, c0 = xs.bfloat16(), h0.bfloat16(), c0.bfloat16()
+    for T in (1, 80):
+        a = lstm_seq_kernel(pb, xs[:T], (h0, c0))
+        b = lstm_seq_kernel(pb, xs[:T], (h0, c0))
+        assert all(torch.equal(x, y) for x, y in zip((a[0], *a[1]), (b[0], *b[1])))
+
+    def grads():
+        ps = [{k: v.clone().requires_grad_(True) for k, v in p.items()} for p in params]
+        ts = [t.clone().requires_grad_(True) for t in (xs, h0, c0)]
+        outs, (h, c) = tlstm.lstm_seq(ps, ts[0], (ts[1], ts[2]))
+        leaves = ts + [p[k] for p in ps for k in ("w_ih", "w_hh", "b")]
+        return torch.autograd.grad((outs.float() ** 2).sum() + h.float().sum() + c.float().sum(), leaves)
+
+    bwd = lstm_bwd_kernel.launches_by_dtype["bf16"]
+    first = grads()
+    assert lstm_bwd_kernel.launches_by_dtype["bf16"] == bwd + 2
+    assert all(torch.equal(x, y) for x, y in zip(first, grads()))
+
+
+def kernels_vs_plain_update(setup, state, card, monkeypatch):
+    """One sgd_update through the kernels and one through the plain versions
+    from copies of `state` on one presampled batch; returns both metrics."""
+    idx, is_w = trep.sample_indices(state.replay, setup.replay, setup.train.batchsize,
+                                    generator=torch.Generator(device=card).manual_seed(0))
+    rows = trep.gather_rows(state.replay, idx)
+    optimizer = learner.make_optimizer(setup.train)
+
+    def fresh_copy():
+        return state._replace(
+            params=AgentParams(clone_params(state.params.online), clone_params(state.params.target)),
+            opt_state=state.opt_state._replace(mu=[m.clone() for m in state.opt_state.mu],
+                                               nu=[v.clone() for v in state.opt_state.nu]),
+            replay=state.replay._replace(weight=state.replay.weight.clone()),
+        )
+
+    _, m_k = learner.sgd_update(setup, optimizer, fresh_copy(), presampled=(rows, is_w, idx))
+    with monkeypatch.context() as m:
+        m.setattr(tlstm, "lstm_seq", lstm_seq_plain)
+        m.setattr(sb, "sample_batch", sb.sample_batch_plain)
+        _, m_p = learner.sgd_update(setup, optimizer, fresh_copy(), presampled=(rows, is_w, idx))
+    return m_k, m_p
+
+
+@pytest.mark.cuda
+def test_bf16_sgd_update_through_kernels_near_plain_on_card(card, monkeypatch):
+    """A bf16 sgd_update through B1/B2's bf16 routes and B3 against the plain
+    versions: loss and grad_norm within 2% relative (bfloat16 roundings of h
+    and c flip where float32 sums differ in order, and the flips carry over
+    24 steps); every param stays float32."""
+    setup, state = small_trainer(card, compute_dtype="bfloat16")
+    state, _ = learner.collect_only(setup, state)
+    bf16 = (lstm_seq_kernel.launches_by_dtype["bf16"], lstm_bwd_kernel.launches_by_dtype["bf16"])
+    m_k, m_p = kernels_vs_plain_update(setup, state, card, monkeypatch)
+    assert lstm_seq_kernel.launches_by_dtype["bf16"] > bf16[0]
+    assert lstm_bwd_kernel.launches_by_dtype["bf16"] == bf16[1] + 2
+    for k in ("loss", "grad_norm", "rl_loss", "aux1"):
+        assert abs(float(m_k[k]) - float(m_p[k])) <= 2e-2 * abs(float(m_p[k])), k
+    assert all(t.dtype == torch.float32 for t in learner.param_leaves(state.params.online))
+
+
+@pytest.mark.cuda
+def test_iql_sgd_update_through_kernels_equals_plain_on_card(card, monkeypatch):
+    """IQL (3 players, one item per player, B3 at Pi = 1) in float32: one
+    sgd_update through the kernels against the plain versions within the
+    float32 test's 1e-4 relative."""
+    cfg = make_config("iql_2p", num_player=3, num_envs=16, batchsize=16, burn_in_frames=48,
+                      replay_buffer_size=256, max_len=24, rnn_hid_dim=64, num_update_per_chunk=2)
+    setup = learner.make_setup(cfg)
+    state = learner.init_train_state(setup, 0, card)
+    state, _ = learner.collect_only(setup, state)
+    assert setup.replay.num_player == 1 and int(state.replay.size) >= 48
+    m_k, m_p = kernels_vs_plain_update(setup, state, card, monkeypatch)
+    for k in ("loss", "grad_norm", "rl_loss"):
+        assert abs(float(m_k[k]) - float(m_p[k])) <= 1e-4 * abs(float(m_p[k])), k
+
+
+@pytest.mark.cuda
+def test_iql_3p_eval_on_card_matches_cpu(card):
+    """The 3-player IQL checkpoint on the same 50 decks through B1 on the card
+    and the plain LSTM on the CPU: at least 49 of 50 games score the same (a
+    float32 near-tie may break the other way), means within 0.5."""
+    decks = shuffled_decks(GameConfig(players=3), 50, torch.Generator().manual_seed(6))
+    cpu_pol = loaders.load_any(IQL_3P, device="cpu")
+    card_pol = loaders.load_any(IQL_3P, device=card)
+    cpu_mean, _, cpu_scores, _ = evaluate([cpu_pol] * 3, 50, seed=0, decks=decks, device="cpu")
+    launches = lstm_seq_kernel.launches
+    card_mean, _, card_scores, _ = evaluate([card_pol] * 3, 50, seed=0, decks=decks, device=card)
+    assert lstm_seq_kernel.launches > launches
+    assert sum(a == b for a, b in zip(card_scores, cpu_scores)) >= 49
+    assert abs(card_mean - cpu_mean) <= 0.5

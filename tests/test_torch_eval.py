@@ -1,5 +1,6 @@
-"""The slice as a whole: greedy eval of the flagship SAD-AUX checkpoint through
-the port (`hanabi_sad_tpu_torch.rollout.runner.eval_rollout`) against the JAX
+"""The slice as a whole: greedy eval of the flagship SAD-AUX checkpoint (and
+of the 3-player IQL checkpoint, without SAD) through the port
+(`hanabi_sad_tpu_torch.rollout.runner.eval_rollout`) against the JAX
 package's eval_rollout, at full width on the CPU.
 
 The JAX rollout deals its games from PRNG keys; the port is handed the same 8
@@ -31,6 +32,7 @@ from hanabi_sad_tpu_torch.tools import loaders as tloaders
 from hanabi_sad_tpu_torch.train.evaluate import evaluate
 
 FLAGSHIP = str(Path(__file__).resolve().parents[1] / "docs/runs/sad_aux_r4_soup10.pkl")
+IQL_3P = str(Path(__file__).resolve().parents[1] / "docs/runs/iql_3p_r5_model4.pkl")
 N, STEPS = 8, 128
 TIE = 1e-4
 
@@ -41,17 +43,31 @@ def policies():
 
 
 def test_eval_rollout_matches_jax(policies):
-    jpol, tpol = policies
-    jcfg = jenv.EnvConfig(game=JGameConfig(players=2), eps_list=(0.0,), max_len=-1, sad=True)
-    keys = jax.vmap(lambda i: jax.random.fold_in(jax.random.PRNGKey(7), i))(jnp.arange(N))
+    eval_parity(*policies, players=2, sad=True, seed=7)
+
+
+def test_iql_3p_eval_rollout_matches_jax():
+    """tools/eval_model's 3-player IQL checkpoint (no SAD, 31 actions, input
+    1081), as the flagship test holds its checkpoint."""
+    jpol, tpol = jloaders.load_native_checkpoint(IQL_3P), tloaders.load_any(IQL_3P, device="cpu")
+    assert (tpol.sad, tpol.agent_cfg.net.in_dim, tpol.agent_cfg.net.out_dim) == (False, 1081, 31)
+    eval_parity(jpol, tpol, players=3, sad=False, seed=8)
+
+
+def eval_parity(jpol, tpol, players, sad, seed):
+    """N games on the same decks in both packages: equal scores, and equal
+    actions up to a near tie of JAX's advantages."""
+    P = players
+    jcfg = jenv.EnvConfig(game=JGameConfig(players=P), eps_list=(0.0,), max_len=-1, sad=sad)
+    keys = jax.vmap(lambda i: jax.random.fold_in(jax.random.PRNGKey(seed), i))(jnp.arange(N))
     decks = np.asarray(jax.vmap(lambda k: jenv.reset_state(jcfg, k).game.deck)(keys))
 
     run = jax.jit(functools.partial(
-        jrunner.eval_rollout, agent_cfgs=[jpol.agent_cfg] * 2, env_cfg=jcfg,
+        jrunner.eval_rollout, agent_cfgs=[jpol.agent_cfg] * P, env_cfg=jcfg,
         num_steps=STEPS, return_actions=True,
     ))
     j_scores, j_done, j_applied, j_was_done = (
-        np.asarray(x) for x in run(params_per_player=[jpol.params] * 2, keys=keys)
+        np.asarray(x) for x in run(params_per_player=[jpol.params] * P, keys=keys)
     )
 
     seen = []  # (priv_s, legal) of every act call, in call order: step-major, seat-minor
@@ -60,11 +76,11 @@ def test_eval_rollout_matches_jax(policies):
         seen.append((obs["priv_s"][:, 0].numpy(), obs["legal_move"][:, 0].numpy()))
         return tagent.act(params, cfg, obs, hidden, generator)
 
-    tcfg = EnvConfig(game=GameConfig(players=2), eps_list=(0.0,), max_len=-1, sad=True)
+    tcfg = EnvConfig(game=GameConfig(players=P), eps_list=(0.0,), max_len=-1, sad=sad)
     t_scores, t_done, t_applied, t_was_done = (
         x.numpy() for x in trunner.eval_rollout(
-            [tpol.params] * 2, [tpol.agent_cfg] * 2, tcfg, torch.from_numpy(decks.copy()).long(),
-            num_steps=STEPS, act_fns=[recording_act] * 2, return_actions=True,
+            [tpol.params] * P, [tpol.agent_cfg] * P, tcfg, torch.from_numpy(decks.copy()).long(),
+            num_steps=STEPS, act_fns=[recording_act] * P, return_actions=True,
         )
     )
     assert j_done.all() and t_done.all()
@@ -74,15 +90,15 @@ def test_eval_rollout_matches_jax(policies):
     # JAX advantages along the trajectory, per seat, from the observations the
     # port saw (identical to JAX's up to a game's first differing action).
     act = jax.jit(lambda p, x, h: jnet.act(p, jpol.agent_cfg.net, x, h))
-    hid = [{"h0": jnp.zeros((N, 2, 512)), "c0": jnp.zeros((N, 2, 512))} for _ in range(2)]
+    hid = [{"h0": jnp.zeros((N, 2, 512)), "c0": jnp.zeros((N, 2, 512))} for _ in range(P)]
     near_tie = np.zeros((STEPS, N), bool)
     for t in range(STEPS):
         advs = []
-        for p in range(2):
-            priv_s, legal = seen[2 * t + p]
+        for p in range(P):
+            priv_s, legal = seen[P * t + p]
             adv, hid[p] = act(jpol.params.online, jnp.asarray(priv_s), hid[p])
             advs.append(np.where(legal > 0, np.asarray(adv), -np.inf))
-        cur = np.asarray(t % 2 == 1, int)  # 2 players alternate from seat 0
+        cur = t % P  # the players move in turn from seat 0
         top2 = -np.sort(-np.stack(advs, 1)[np.arange(N), np.full(N, cur)], axis=1)[:, :2]
         near_tie[t] = np.isfinite(top2[:, 1]) & (top2[:, 0] - top2[:, 1] < TIE)
 
@@ -112,3 +128,11 @@ def test_eval_model_cli_on_cpu(capsys):
     assert 0 <= mean <= 25 and sem >= 0 and 0 <= perfect <= 1
     assert "score: " in capsys.readouterr().out
 
+
+
+def test_eval_model_cli_evaluates_the_3p_iql_checkpoint(capsys):
+    mean, sem, perfect = teval_model.main(
+        ["--weight", IQL_3P, "--num_game", "4", "--num_player", "3", "--device", "cpu"]
+    )
+    assert 0 <= mean <= 25 and sem >= 0 and 0 <= perfect <= 1
+    assert "score: " in capsys.readouterr().out

@@ -3,9 +3,10 @@ and the native C++ oracle.
 
 Both envs are dealt the same decks, made with numpy from a seed, and play
 random-legal moves drawn by numpy from the JAX legal mask, 2 players with
-SAD. priv_s (838), legal_move (21), own_hand, reward, done and score must be
-exactly equal at every step; so must the native engine's observation, legal
-mask, own hand and SAD channel while a game is live."""
+SAD (and 3-5 players, with and without SAD, at the default hand sizes).
+priv_s (838 at 2 players), legal_move (21), own_hand, reward, done and score
+must be exactly equal at every step; so must the native engine's
+observation, legal mask, own hand and SAD channel while a game is live."""
 
 import functools
 
@@ -42,8 +43,9 @@ def random_decks(seed, n=N):
 
 
 @functools.lru_cache(maxsize=None)
-def jax_env(max_len):
-    cfg = jenv.EnvConfig(game=JGameConfig(players=2), max_len=max_len, sad=True)
+def jax_env(max_len, players=2, sad=True):
+    cfg = jenv.EnvConfig(game=JGameConfig(players=players, hand_size=default_hand_size(players)),
+                         max_len=max_len, sad=sad)
     step = jax.jit(jax.vmap(lambda s, a: jenv.step(cfg, s, a)))
     observe = jax.jit(jax.vmap(lambda s: jenv.observe(cfg, s)))
     return cfg, step, observe
@@ -52,8 +54,9 @@ def jax_env(max_len):
 def jax_reset(cfg, observe, decks):
     keys = jax.random.split(jax.random.PRNGKey(0), decks.shape[0])
     state = jax.vmap(lambda k: jenv.reset_state(cfg, k))(keys)
+    P, H = cfg.game.players, cfg.game.hand_size
     game = state.game._replace(
-        deck=jnp.asarray(decks), hands=jnp.asarray(decks[:, :10].reshape(-1, 2, 5))
+        deck=jnp.asarray(decks), hands=jnp.asarray(decks[:, : P * H].reshape(-1, P, H))
     )
     state = state._replace(game=game)
     return state, observe(state)
@@ -66,23 +69,45 @@ def assert_obs_equal(jobs, tobs, where):
 
 @pytest.mark.parametrize("seed,max_len", [(0, -1), (1, -1), (2, 80), (3, 20)])
 def test_random_playout_parity(seed, max_len):
+    tobs = playout(seed, max_len, players=2, sad=True)
+    assert tobs["priv_s"].shape == (N, 2, 838) and tobs["legal_move"].shape == (N, 2, 21)
+
+
+@pytest.mark.parametrize("players,sad,seed,max_len", [
+    (3, True, 10, -1), (3, False, 11, 40), (4, True, 12, -1), (4, False, 13, -1), (5, True, 14, 60),
+    (5, False, 15, -1),
+])
+def test_random_playout_parity_at_3_to_5_players(players, sad, seed, max_len):
+    """Whole games at 3-5 players, the default hand sizes (5, 4, 4), with and
+    without SAD, against the JAX env and the native engine on the same decks:
+    exactly equal at every step, as at 2 players."""
+    tobs = playout(seed, max_len, players=players, sad=sad)
+    cfg = GameConfig(players=players, hand_size=default_hand_size(players))
+    assert tobs["priv_s"].shape == (N, players, cfg.feature_size(sad))
+    assert tobs["legal_move"].shape == (N, players, cfg.num_actions)
+
+
+def playout(seed, max_len, players, sad):
+    """Random-legal play of N games on injected decks in the port, the JAX
+    env and (if built) the native engine, compared at every step; returns
+    the port's last observation."""
+    P, hand = players, default_hand_size(players)
     decks = random_decks(seed)
-    jcfg, jstep, jobserve = jax_env(max_len)
-    tcfg = tenv.EnvConfig(game=GameConfig(players=2), max_len=max_len, sad=True)
+    jcfg, jstep, jobserve = jax_env(max_len, P, sad)
+    tcfg = tenv.EnvConfig(game=GameConfig(players=P, hand_size=hand), max_len=max_len, sad=sad)
     jstate, jobs = jax_reset(jcfg, jobserve, decks)
     tstate, tobs = tenv.reset(tcfg, N, decks=torch.from_numpy(decks), device="cpu")
-    natives = [NativeGame(d, players=2, hand_size=5) for d in decks] if available() else None
-    assert tobs["priv_s"].shape == (N, 2, 838) and tobs["legal_move"].shape == (N, 2, 21)
+    natives = [NativeGame(d, players=P, hand_size=hand) for d in decks] if available() else None
     assert_obs_equal(jobs, tobs, "reset")
     rng = np.random.RandomState(1000 + seed)
 
-    for step_idx in range(120):
+    for step_idx in range(200):
         if bool(np.asarray(jstate.done).all()):
             break
         legal = np.asarray(jobs["legal_move"])
         cur = np.asarray(jstate.game.cur_player)
-        a = np.zeros((N, 2), np.int32)
-        g = np.zeros((N, 2), np.int32)
+        a = np.zeros((N, P), np.int32)
+        g = np.zeros((N, P), np.int32)
         for i in range(N):
             choices = np.where(legal[i, cur[i]] > 0)[0]
             a[i] = rng.choice(choices)
@@ -91,7 +116,7 @@ def test_random_playout_parity(seed, max_len):
         channels = None
         if natives is not None:
             channels = [
-                [natives[i].greedy_channel(int(g[i, 0]), p) for p in range(2)]
+                [natives[i].greedy_channel(int(g[i, 0]), p) for p in range(P)]
                 if not was_done[i] else None
                 for i in range(N)
             ]
@@ -120,10 +145,14 @@ def test_random_playout_parity(seed, max_len):
             nreward = natives[i].step(int(a[i, 0]))
             if max_len <= 0 or step_idx + 1 < max_len:
                 assert float(trew[i]) == nreward, f"{where} env {i} native reward"
-            for p in range(2):
+            for p in range(P):
                 obs = tobs["priv_s"][i, p].numpy()
-                np.testing.assert_array_equal(obs[:783], natives[i].encode(p), err_msg=f"{where} native obs")
-                np.testing.assert_array_equal(obs[783:], channels[i][p], err_msg=f"{where} native sad")
+                base = natives[i].obs_dim
+                np.testing.assert_array_equal(obs[:base], natives[i].encode(p), err_msg=f"{where} native obs")
+                if sad:
+                    np.testing.assert_array_equal(obs[base:], channels[i][p], err_msg=f"{where} native sad")
+                else:
+                    assert obs.shape[0] == base
                 np.testing.assert_array_equal(
                     tobs["legal_move"][i, p].numpy().astype(bool),
                     natives[i].legal_moves(p).astype(bool), err_msg=f"{where} native legal",
@@ -132,7 +161,8 @@ def test_random_playout_parity(seed, max_len):
                     tobs["own_hand"][i, p].numpy(), natives[i].own_hand(p), err_msg=f"{where} native own_hand"
                 )
             assert int(score(tstate.game)[i]) == natives[i].score
-    assert bool(tstate.done.all()), "games did not end within 120 steps"
+    assert bool(tstate.done.all()), "games did not end within 200 steps"
+    return tobs
 
 
 def test_uid_round_trip_and_legal_shape():

@@ -45,13 +45,32 @@ def test_config_presets_and_eps_menu_match_jax():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("method", "iql"), ("rollout_mode", "aligned"), ("shuffle_color", True), ("shuffle_obs", True),
-    ("compute_dtype", "bfloat16"), ("stacked_td", True), ("snapshot_sampling", True),
+    ("rollout_mode", "aligned"), ("shuffle_color", True), ("shuffle_obs", True),
+    ("stacked_td", True), ("snapshot_sampling", True),
     ("exact_priority_in_rollout", False), ("continuous_exact_priority", False), ("multihost", True),
 ])
 def test_features_not_ported_raise(field, value):
     with pytest.raises(NotImplementedError):
         tconfig.make_config("sad_2p", **{field: value})
+
+
+@pytest.mark.parametrize("overrides", [
+    dict(compute_dtype="bfloat16"), dict(method="iql"), dict(method="iql", num_player=5),
+    dict(profile_chunks=3), dict(method="iql", num_player=3, compute_dtype="bfloat16", profile_chunks=1),
+])
+def test_ported_features_construct_as_in_jax(overrides):
+    """bfloat16 compute, IQL at 2-5 players and profile_chunks give the JAX
+    package's config and derived setup; IQL divides nothing by num_player."""
+    t, j = tconfig.make_config("sad_2p", **overrides), jconfig.make_config("sad_2p", **overrides)
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert dataclasses.asdict(t.derived()) == dataclasses.asdict(j.derived())
+    if t.method == "iql":
+        assert t.derived() == t
+
+
+def test_unknown_compute_dtype_raises():
+    with pytest.raises(ValueError, match="compute_dtype"):
+        tconfig.make_config("sad_2p", compute_dtype="float16")
 
 
 def test_make_setup_sad_2p_matches_jax():

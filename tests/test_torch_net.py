@@ -123,6 +123,11 @@ def test_forward(weights, with_hid):
     np.testing.assert_array_equal(t_g.numpy(), np.asarray(j_g))
 
 
-def test_bfloat16_compute_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        tnet.NetConfig(in_dim=838, compute_dtype="bfloat16")
+@pytest.mark.parametrize("dtype,cdtype", [("float32", torch.float32), ("bfloat16", torch.bfloat16)])
+def test_compute_dtype_names_the_torch_dtype(dtype, cdtype):
+    assert tnet.NetConfig(in_dim=838, compute_dtype=dtype).cdtype == cdtype
+
+
+def test_unknown_compute_dtype_raises():
+    with pytest.raises(ValueError, match="compute_dtype"):
+        tnet.NetConfig(in_dim=838, compute_dtype="float16")

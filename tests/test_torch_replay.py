@@ -194,3 +194,31 @@ def test_update_priority_matches_jax():
     jstate = jrep.update_priority(jstate, JCFG, jnp.asarray(idx), jnp.asarray(prio))
     tstate = trep.update_priority(tstate, TCFG, torch.from_numpy(idx).long(), torch.from_numpy(prio))
     np.testing.assert_allclose(tstate.weight.numpy(), np.asarray(jstate.weight), rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("case", ["edges", "all_dropped", "duplicates_with_dropped"])
+def test_update_priority_indexes_like_jnp(case):
+    """Queue C item 5: indices read as JAX's `weight.at[idx].set` reads them,
+    against `jnp` at idx in {-cap-2, -cap, -1, 0, cap-1, cap, cap+3}: one in
+    [-cap, -1] counts from the end, the write of one outside [-cap, cap) is
+    dropped (no raise on the CPU). Within 1e-6 relative of JAX's weights
+    (`pow` of another library, as in test_update_priority_matches_jax), and
+    every slot that JAX leaves alone keeps the port's own bits."""
+    idx = {"edges": [-CAP - 2, -CAP, -1, 0, CAP - 1, CAP, CAP + 3],
+           "all_dropped": [CAP, -CAP - 1, CAP + 7],
+           "duplicates_with_dropped": [4, CAP, 4, -CAP - 5, 9]}[case]
+    idx = np.asarray(idx, np.int32)
+    prio = np.random.RandomState(len(idx)).uniform(0.1, 2.0, idx.shape).astype(np.float32)
+    if case == "duplicates_with_dropped":
+        prio[2] = prio[0]  # duplicate rows of a batch carry the same priority
+    jstate, tstate = filled()
+    before = tstate.weight.clone()
+    jstate = jrep.update_priority(jstate, JCFG, jnp.asarray(idx), jnp.asarray(prio))
+    tstate = trep.update_priority(tstate, TCFG, torch.from_numpy(idx).long(), torch.from_numpy(prio))
+    np.testing.assert_allclose(tstate.weight.numpy(), np.asarray(jstate.weight), rtol=1e-6, atol=0)
+    assert tstate.weight.shape == (CAP,)
+    written = {int(i) % CAP for i in idx if -CAP <= i < CAP}
+    untouched = [j for j in range(CAP) if j not in written]
+    assert torch.equal(tstate.weight[untouched], before[untouched])
+    if case == "all_dropped":
+        assert torch.equal(tstate.weight, before)
