@@ -5,8 +5,11 @@
 Phases, each printing JSON lines (any failure exits nonzero):
   1. device   the card, its power limit, the torch and CUDA versions;
   2. build    nvcc builds kernels B1 (ops/csrc/lstm_seq.cu), B2's backward
-              (ops/csrc/lstm_bwd.cu) and B3 (ops/csrc/sample_batch.cu) in
-              parallel, with -Xptxas -v;
+              (ops/csrc/lstm_bwd.cu), their bfloat16 routes
+              (ops/csrc/lstm_bf16.cu) and B3 (ops/csrc/sample_batch.cu) in
+              parallel, with -Xptxas -v; then cuobjdump -sass of the LSTM
+              libraries: every bfloat16 kernel holds tensor-core
+              instructions (HMMA or HGMMA), no float32 kernel does;
   3. check    on the flagship's LSTM weights: B1 against its plain version
               at the eval shape, the rollout shape and a ragged batch; at
               the learner shape [80, 128, 512] over 8 seeds, B1's and B2's
@@ -14,7 +17,9 @@ Phases, each printing JSON lines (any failure exits nonzero):
               than twice the plain float32 version (autograd for the grads), B2's
               forward equal to B1's bit for bit and its grads within
               GRAD_REL_TOL of plain autograd; two calls of B1 and of B2 on the
-              same inputs give the same bits; then B1 and B2's bfloat16 routes:
+              same inputs give the same bits, and a hash of B1's and B2's
+              float32 outputs and grads on seed-fixed inputs (`f32_hash`,
+              for comparing two trees); then B1 and B2's bfloat16 routes:
               at the rollout shapes of 2 and 3 players and a ragged batch
               against the plain bf16 version (BF16_STEP_ULPS), at the learner
               shape over 8 seeds by the BF16_RULES against float64, B2's
@@ -30,7 +35,13 @@ Phases, each printing JSON lines (any failure exits nonzero):
               launch time; B1 bf16 at the rollout shapes of 2 and 3 players
               and the learner shape, and B2 bf16, each beside its plain
               version, cuDNN in bf16, the float32 kernel and the bound at the
-              tensor cores' bf16 rate;
+              tensor cores' bf16 rate; the persistent kernels' time per step
+              (device time under torch.profiler / T) in float32 and bf16,
+              forward and backward, and B2 bf16's device time split into its
+              forward, its backward kernel and the rest (the batched cuBLAS
+              products of the backward and their sums); then, on a line of
+              its own, the bf16 routes' times in their first port, as
+              constants (FIRST_PORT_BF16_MS);
   5. eval     greedy self-play of docs/runs/sad_aux_r4_soup10.pkl, 1000 games,
               through B1, then through the plain LSTM on the same decks;
   6. train    the flagship SAD-AUX trainer (preset sad_2p, pred_weight 0.25,
@@ -54,7 +65,9 @@ Phases, each printing JSON lines (any failure exits nonzero):
               through B1 and the plain LSTM on the same decks, within
               IQL_3P_BAND of the JAX package's eval;
   7. kernels  one {"kernels": [...]} line for B1 and B2 in float32 and in
-              bfloat16, and B3.
+              bfloat16 (with whether their SASS uses the tensor cores, their
+              per-step µs and B2's split), and B3; every number on it is
+              measured by this run but the bound, which it computes.
 The line before the last is the card's name and power limit as nvidia-smi
 prints them; the last line is {"ok": true, "device": {...}}.
 
@@ -164,6 +177,16 @@ BF16_RULES = ("outputs", "steps", "backward")
 # grows over the 80 steps, so the gap is bf16's, not float32's. Measured:
 # 1.3e-5, 1.2e-4 and 2.2e-4 in the first full-width run (PERF.md).
 SGD_REL_TOL_BF16 = {"loss": 1e-3, "grad_norm": 1e-2, "priority": 1e-2}
+# B1 and B2 bf16's times in their first port, the float32 FMA tiles on
+# converted values (ms, this script's phase timing, three runs on NVIDIA H100
+# 80GB HBM3 at 700 W; PERF.md section 6). Constants, not measured by this
+# run: they are printed on a line of their own, never on the kernels line.
+FIRST_PORT_BF16_MS = {"B1_bf16_rollout": [0.4879, 0.4907, 0.4871], "B1_bf16_rollout_3p": [0.8438, 0.8387, 0.8495],
+                      "B1_bf16_learner": [3.836, 3.824, 3.812], "B2_bf16_learner": [9.869, 9.811, 9.831]}
+# Tensor-core instructions in SASS: mma.sync compiles to HMMA, wgmma to HGMMA.
+TENSOR_CORE_SASS = ("HMMA", "HGMMA")
+# The kernels (by a part of their names) behind each LSTM entry point.
+LSTM_ENTRY_KERNELS = {"lstm_gates": "gates_kernel", "lstm_recurrence": "recurrence_kernel", "lstm_bwd": "bwd_kernel"}
 
 
 def emit(obj):
@@ -245,24 +268,29 @@ def step_gaps(torch, params, xs, hidden, saved):
     return gaps
 
 
+def kernel_times(torch, fn, iters=10, warmup=2):
+    """{kernel name: (device ms per call of fn, launches per call)} under
+    torch.profiler."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = lambda row: getattr(row, "self_device_time_total", None) or getattr(row, "self_cuda_time_total", 0)
+    return {row.key: (us(row) / iters / 1e3, row.count / iters) for row in prof.key_averages() if us(row) > 0}
+
+
 def device_ms(torch, fn, flush=None, iters=20, warmup=3):
     """Per call of fn: the device time of the kernels it launches, summed
     from torch.profiler, so the host's time to launch them is left out (B3's
     wrapper takes longer on the host than its kernel on the card). With
     `flush`, L2 is overwritten before each call and the flush's own kernel
     is left out of the sum."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            if flush is not None:
-                flush()
-            fn()
-        torch.cuda.synchronize()
-    us = lambda row: getattr(row, "self_device_time_total", None) or getattr(row, "self_cuda_time_total", 0)
-    total = sum(us(row) for row in prof.key_averages() if FLUSH_KERNEL not in row.key)
-    return total / iters / 1e3
+    call = fn if flush is None else lambda: (flush(), fn())
+    times = kernel_times(torch, call, iters=iters, warmup=warmup)
+    return sum(ms for name, (ms, _) in times.items() if FLUSH_KERNEL not in name)
 
 
 def batch_bytes(T, B, Pi, NB, F, A, H3):
@@ -272,6 +300,62 @@ def batch_bytes(T, B, Pi, NB, F, A, H3):
     writes = 4 * T * B * Pi * (F + A + H3) + 8 * T * B * Pi + 3 * 4 * T * B + 4 * B
     reads = T * B * Pi * NB + 8 * T * B * Pi + 2 * 4 * T * B + 4 * B + 8 * B
     return writes + reads
+
+
+def sass_tensor_ops(path, cuobjdump):
+    """{kernel (mangled name): its tensor-core instructions} in the SASS of
+    the library at `path`."""
+    out = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True, timeout=120)
+    if out.returncode != 0:
+        fail(f"cuobjdump -sass {path} failed: {out.stderr.strip()}")
+    counts, name = {}, None
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            counts[name] = 0
+        elif name is not None and any(op in line for op in TENSOR_CORE_SASS):
+            counts[name] += 1
+    return counts
+
+
+def f32_hash(torch, dev):
+    """A sha256 of B1's float32 outputs at the eval and learner shapes and of
+    B2's float32 outputs and grads at the learner shape, on the flagship's
+    LSTM weights and seed-fixed inputs: two trees whose float32 routes give
+    the same bits give the same digest. It uses only entry points that the
+    port has had since its float32 routes were redesigned, so a parent tree's
+    package can be hashed by it too. Returns (digest, {part: its digest's
+    first 16 hex digits})."""
+    import hashlib
+
+    from hanabi_sad_tpu_torch.ops.lstm_seq import lstm_seq_diff, lstm_seq_kernel
+    from hanabi_sad_tpu_torch.tools import loaders
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    params = loaders.load_any(FLAGSHIP, device=dev).params.online.lstm
+    L, H = len(params), params[0]["w_hh"].shape[0]
+    g = torch.Generator().manual_seed(20)
+    r = lambda *shape, scale=1.0: (scale * torch.randn(*shape, generator=g)).to(dev)
+    parts = {}
+    with torch.no_grad():
+        for T, B in (B1_CASES["eval"], B1_CASES["learner"]):
+            parts[f"B1_{T}x{B}"] = flat3(lstm_seq_kernel(params, r(T, B, H), (r(L, B, H, scale=0.5),
+                                                                               r(L, B, H, scale=0.5))))
+    T, B = B1_CASES["learner"]
+    ps = [{k: v.clone().requires_grad_(True) for k, v in p.items()} for p in params]
+    ts = [t.requires_grad_(True) for t in (r(T, B, H), r(L, B, H, scale=0.5), r(L, B, H, scale=0.5))]
+    outs, (h_t, c_t) = lstm_seq_diff(ps, ts[0], (ts[1], ts[2]))
+    leaves = ts + [p[k] for p in ps for k in ("w_ih", "w_hh", "b")]
+    parts["B2_grads"] = list(torch.autograd.grad((outs, h_t, c_t), leaves, [r(T, B, H), r(L, B, H), r(L, B, H)]))
+    parts["B2_outputs"] = [outs.detach(), h_t.detach(), c_t.detach()]
+    whole, short = hashlib.sha256(), {}
+    for name, tensors in parts.items():
+        h = hashlib.sha256()
+        for t in tensors:
+            h.update(t.detach().cpu().contiguous().numpy().tobytes())
+        whole.update(h.digest())
+        short[name] = h.hexdigest()[:16]
+    return whole.hexdigest(), short
 
 
 def cuda_ms(torch, fn, iters=50, warmup=5):
@@ -344,11 +428,33 @@ def main():
 
     # 2. build: one nvcc per source, all started together
     t0 = time.time()
-    built = build.build_many([lstm_seq_kernel.source, lstm_bwd_kernel.source, b3.source])
+    lstm_sources = sorted({*lstm_seq_kernel.sources.values(), *lstm_bwd_kernel.sources.values()})
+    built = build.build_many(lstm_sources + [b3.source])
     for wrapper in (lstm_seq_kernel, lstm_bwd_kernel, b3):
         wrapper.load()
     for source, (_, ptxas) in built.items():
         emit({"phase": "build", "source": source, "ptxas": ptxas})
+    # The SASS of the LSTM libraries: every kernel of the bfloat16 library
+    # uses the tensor cores, no kernel of a float32 library does.
+    cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    if not os.access(cuobjdump, os.X_OK):
+        fail(f"cuobjdump not found beside nvcc at {cuobjdump}; the SASS check cannot run")
+    tensor_cores = {}
+    for suffix in ("f32", "bf16"):
+        sass = {}
+        for source in {lstm_seq_kernel.sources[suffix], lstm_bwd_kernel.sources[suffix]}:
+            sass.update(sass_tensor_ops(build.lib_path(source), cuobjdump))
+        for entry, part in LSTM_ENTRY_KERNELS.items():
+            uses = [count > 0 for name, count in sass.items() if part in name]
+            if not uses:
+                fail(f"no kernel of {entry}_{suffix} in the SASS")
+            # bf16: every kernel of the entry point; float32: any of them
+            tensor_cores[f"{entry}_{suffix}"] = all(uses) if suffix == "bf16" else any(uses)
+        emit({"phase": "build", "sass_tensor_core_instructions": suffix, "kernels": sass})
+    emit({"phase": "build", "tensor_cores": tensor_cores})
+    bad = [k for k, v in tensor_cores.items() if v != k.endswith("_bf16")]
+    if bad:
+        fail(f"tensor cores where they should not be, or missing where they should be: {bad}")
     emit({"phase": "build", "seconds": round(time.time() - t0, 3)})
 
     # 3. check, on the flagship's LSTM weights
@@ -452,6 +558,8 @@ def main():
     if not all(deterministic.values()):
         fail(f"two calls on the same inputs gave different bits: {deterministic}")
     b2_max_err = max(max(worst["B2"].values()), *b2_grad_rel.values())
+    digest, parts = f32_hash(torch, dev)
+    emit({"phase": "check", "f32_hash": digest, "parts": parts})
 
     # B1 and B2's bfloat16 routes. At the one-step shapes (rollout, 2 and 3
     # players, and a ragged batch) against the plain bf16 version within
@@ -681,6 +789,40 @@ def main():
                                  "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms,
                                  "bound_by": b_by, "launches_per_call": {k: v for k, v in per_call.items()
                                                                          if k != "b3"}}
+
+    # Device time by kernel under torch.profiler at the learner shape: the
+    # persistent kernels' time per step (a launch's time / T; B2's backward
+    # runs T + 1 products), and B2's device time split into its forward (B1's
+    # kernels), its backward kernel and the rest: the batched cuBLAS products
+    # of the backward (dW_ih, dW_hh, dX) and their sums and casts.
+    def launch_ms(times, part):
+        sel = [v for k, v in times.items() if part in k]
+        return sum(ms for ms, _ in sel) / sum(n for _, n in sel)
+
+    def split_ms(times):
+        fwd = sum(ms for k, (ms, _) in times.items() if "gates_kernel" in k or "recurrence_kernel" in k)
+        bwd = sum(ms for k, (ms, _) in times.items() if "bwd_kernel" in k)
+        rest = sorted(((ms, k) for k, (ms, _) in times.items() if not any(
+            p in k for p in ("gates_kernel", "recurrence_kernel", "bwd_kernel"))), reverse=True)
+        return {"forward": fwd, "backward_kernel": bwd, "products_and_rest": sum(ms for ms, _ in rest),
+                "products_gemm": sum(ms for ms, k in rest if "gemm" in k.lower()),
+                "total": fwd + bwd + sum(ms for ms, _ in rest), "rest_top": [[k[:80], ms] for ms, k in rest[:6]]}
+
+    with torch.no_grad():
+        b1_f32_times = kernel_times(torch, lambda: lstm_seq_kernel(lstm_params, xs, (h0, c0)))
+        b1_bf16_times = kernel_times(torch, lambda: lstm_seq_kernel(pb, xb, (hb, cb)))
+    b2_f32_times = kernel_times(torch, lambda: fwd_bwd(lstm_seq_diff, ps_k, ts_k, leaves_k, cot))
+    b2_bf16_times = kernel_times(torch, lambda: fwd_bwd(lstm_seq_diff, ps_b, ts_b, leaves_b, cotb))
+    timing["persistent_step_us"] = {
+        "B1_f32": 1e3 * launch_ms(b1_f32_times, "recurrence_kernel") / T,
+        "B1_bf16": 1e3 * launch_ms(b1_bf16_times, "recurrence_kernel") / T,
+        "B2_bwd_f32": 1e3 * launch_ms(b2_f32_times, "bwd_kernel") / T,
+        "B2_bwd_bf16": 1e3 * launch_ms(b2_bf16_times, "bwd_kernel") / T}
+    timing["B1_learner_device_ms"] = {"f32": sum(ms for ms, _ in b1_f32_times.values()),
+                                      "bf16": sum(ms for ms, _ in b1_bf16_times.values()),
+                                      "bf16_gates": sum(ms for k, (ms, _) in b1_bf16_times.items()
+                                                        if "gates_kernel" in k)}
+    timing["B2_split_ms"] = {"f32": split_ms(b2_f32_times), "bf16": split_ms(b2_bf16_times)}
     del ps_b, ts_b, leaves_b, cudnn_leaves_b
 
     # B3 at the flagship shape: 64 of 65,536 episodes of [80, 2, 110] bytes
@@ -708,6 +850,8 @@ def main():
                              "bound_ms": b_ms, "bound_by": b_by, "launches_per_call": per_call}
     del fields, scratch
     emit({"phase": "timing", "card": smi_line, **timing, "seconds": round(time.time() - t0, 3)})
+    emit({"phase": "timing", "first_port_bf16_ms": FIRST_PORT_BF16_MS,
+          "note": "constants: the bf16 route's times on the float32 FMA tiles, not measured by this run"})
 
     # 5. eval: kernel path, then plain path on the same decks
     num_game, seed, num_steps = 1000, 1, 128
@@ -1080,13 +1224,17 @@ def main():
          "max_abs_err": max(b1_errors.values()), "ms": b1["ms"],
          "plain_ms": b1["plain_ms"], "bound_ms": b1["bound_ms"], "bound_by": b1["bound_by"],
          "library_ms": b1["library_ms"], "shape": "T=80 B=128 H=512 L=2",
+         "tensor_cores": tensor_cores["lstm_gates_f32"] or tensor_cores["lstm_recurrence_f32"],
+         "step_us": timing["persistent_step_us"]["B1_f32"],
          "eval_shape": timing["B1_eval"], "eval_launches": eval_counts["b1"],
          "rollout_shape": timing["B1_rollout"]},
         {"name": "lstm_seq_diff (B2)", "route": "cuda", "source": "hanabi_sad_tpu_torch/ops/csrc/lstm_bwd.cu",
          "replaces": "hanabi_sad_tpu/ops/experimental/pallas_lstm.py:212",
          "launches": totals["b2_bwd"], "calls": totals["b2"], "max_abs_err": b2_max_err, "ms": b2["ms"],
          "plain_ms": b2["plain_ms"], "bound_ms": b2["bound_ms"], "bound_by": b2["bound_by"],
-         "library_ms": b2["library_ms"], "shape": "T=80 B=128 H=512 L=2, forward + backward"},
+         "library_ms": b2["library_ms"], "shape": "T=80 B=128 H=512 L=2, forward + backward",
+         "tensor_cores": tensor_cores["lstm_bwd_f32"], "step_us": timing["persistent_step_us"]["B2_bwd_f32"],
+         "split_ms": timing["B2_split_ms"]["f32"]},
         {"name": "sample_batch (B3)", "route": "cuda",
          "source": "hanabi_sad_tpu_torch/ops/csrc/sample_batch.cu",
          "replaces": "hanabi_sad_tpu/ops/experimental/pallas_replay.py:68",
@@ -1096,20 +1244,24 @@ def main():
          "bound_ms": b3t["bound_ms"], "bound_by": b3t["bound_by"], "library_ms": None,
          "shape": "64 of 65,536 episodes x [80, 2, 110] bytes -> Batch [80, 64, 2, 838 + 21 + 15]",
          "iql_launches": iql_totals["b3"], "iql_shape": iql_shape},
-        {"name": "lstm_seq bf16 (B1)", "route": "cuda", "source": "hanabi_sad_tpu_torch/ops/csrc/lstm_seq.cu",
+        {"name": "lstm_seq bf16 (B1)", "route": "cuda", "source": "hanabi_sad_tpu_torch/ops/csrc/lstm_bf16.cu",
          "replaces": "hanabi_sad_tpu/ops/experimental/pallas_lstm.py:166",
          "launches": bf16_totals["b1_bf16"], "max_abs_err": max(v for k, v in bf16_errors.items() if k != "learner"),
          "learner_step_gap_to_f64": {k: bworst[f"step.{k}.B1"] for k in ("act", "h", "c")},
          "ms": b1b["ms"], "plain_ms": b1b["plain_ms"], "bound_ms": b1b["bound_ms"], "bound_by": b1b["bound_by"],
          "library_ms": b1b["library_ms"], "f32_kernel_ms": b1b["f32_kernel_ms"], "shape": "T=80 B=128 H=512 L=2",
+         "tensor_cores": tensor_cores["lstm_gates_bf16"] and tensor_cores["lstm_recurrence_bf16"],
+         "step_us": timing["persistent_step_us"]["B1_bf16"],
          "rollout_shape": timing["B1_bf16_rollout"], "rollout_3p_shape": timing["B1_bf16_rollout_3p"]},
         {"name": "lstm_seq_diff bf16 (B2)", "route": "cuda",
-         "source": "hanabi_sad_tpu_torch/ops/csrc/lstm_bwd.cu",
+         "source": "hanabi_sad_tpu_torch/ops/csrc/lstm_bf16.cu",
          "replaces": "hanabi_sad_tpu/ops/experimental/pallas_lstm.py:212",
          "launches": bf16_totals["b2_bwd_bf16"], "calls": bf16_totals["b2"], "max_abs_err": b2_bf16_max_err,
          "ms": b2b["ms"], "plain_ms": b2b["plain_ms"], "bound_ms": b2b["bound_ms"], "bound_by": b2b["bound_by"],
          "library_ms": b2b["library_ms"], "f32_kernel_ms": b2b["f32_kernel_ms"],
-         "shape": "T=80 B=128 H=512 L=2, forward + backward"},
+         "shape": "T=80 B=128 H=512 L=2, forward + backward",
+         "tensor_cores": tensor_cores["lstm_bwd_bf16"],
+         "step_us": timing["persistent_step_us"]["B2_bwd_bf16"], "split_ms": timing["B2_split_ms"]["bf16"]},
     ], "train_chunk_wall_s": train_walls, "train_bf16_chunk_wall_s": bf16_walls,
         "train_iql_chunk_wall_s": iql_walls, "iql_launches": iql_totals, "eval_iql_3p_launches": eval3_counts})
     print(f"# total seconds: {time.time() - t_all:.1f}", flush=True)

@@ -42,7 +42,7 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found on PATH, at $CUDA_HOME/bin/nvcc or " + NVCC_FALLBACK)
 
 
-def _lib_path(source: str) -> Path:
+def lib_path(source: str) -> Path:
     """The library's path, named after a hash of the source, the headers of
     csrc/ (any source may include them) and the flags."""
     src = CSRC / source
@@ -63,11 +63,11 @@ def build_many(sources: List[str]) -> Dict[str, Tuple[ctypes.CDLL, List[str]]]:
     jobs = {}
     try:
         for source in sources:
-            lib_path = _lib_path(source)
-            if lib_path.exists():
+            path = lib_path(source)
+            if path.exists():
                 continue
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(prefix=f".{lib_path.stem}_", suffix=".so", dir=BUILD_DIR)
+            fd, tmp = tempfile.mkstemp(prefix=f".{path.stem}_", suffix=".so", dir=BUILD_DIR)
             os.close(fd)
             proc = subprocess.Popen(
                 [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / source)],
@@ -75,13 +75,13 @@ def build_many(sources: List[str]) -> Dict[str, Tuple[ctypes.CDLL, List[str]]]:
                 stderr=subprocess.PIPE,
                 text=True,
             )
-            jobs[source] = (proc, tmp, lib_path)
+            jobs[source] = (proc, tmp, path)
         ptxas = {}
-        for source, (proc, tmp, lib_path) in jobs.items():
+        for source, (proc, tmp, path) in jobs.items():
             out, err = proc.communicate(timeout=NVCC_TIMEOUT_S)
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed on {CSRC / source}:\n{err}")
-            os.replace(tmp, lib_path)
+            os.replace(tmp, path)
             ptxas[source] = [l for l in (out + err).splitlines() if "ptxas" in l]
     finally:
         for proc, tmp, _ in jobs.values():
@@ -90,7 +90,7 @@ def build_many(sources: List[str]) -> Dict[str, Tuple[ctypes.CDLL, List[str]]]:
                 proc.wait()
             if os.path.exists(tmp):
                 os.remove(tmp)
-    return {s: (ctypes.CDLL(str(_lib_path(s))), ptxas.get(s, [])) for s in sources}
+    return {s: (ctypes.CDLL(str(lib_path(s))), ptxas.get(s, [])) for s in sources}
 
 
 def build(source: str) -> Tuple[ctypes.CDLL, List[str]]:

@@ -28,12 +28,9 @@
 // The carry dc * f lives in dc0, which each owner alone reads and writes.
 // Then a grid barrier. No atomics: the same inputs give the same bits.
 //
-// Types: W_hh and c0 are float (lstm_bwd_f32) or bfloat16 (lstm_bwd_bf16),
-// the weights and the initial cell of a bfloat16 forward; everything else,
-// dout, gh, gc, the saved gates and cell states, dG, dh0 and dc0, is float
-// in both: the backward of a bfloat16 forward is computed in float from what
-// the forward saved (the cell states saved rounded to bfloat16, as the
-// forward read them).
+// Types: float throughout (lstm_bwd_f32). The backward of a bfloat16 forward,
+// which takes bfloat16 W_hh and c0 and computes in float from what the
+// forward saved, is lstm_bf16.cu's lstm_bwd_bf16, on the tensor cores.
 //
 // Bound: the recurrent product is 2 * T * B * H * 4H operations per layer,
 // a third of the backward's (2.7 GFLOP per layer at T=80, B=128, H=512,
@@ -42,7 +39,6 @@
 // card's rate.
 
 #include <cooperative_groups.h>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "lstm_tile.cuh"
@@ -55,11 +51,10 @@ namespace cg = cooperative_groups;
 // dout [T, B, H]; gh, gc [B, H] or null (zeros); act [T, B, 4H] the gate
 // activations; cseq [T, B, H] the cell states; c0 [B, H]; w_hh [H, 4H].
 // Writes dg [T, B, 4H], dh0 and dc0 [B, H].
-template <typename Elem>
 __global__ void __launch_bounds__(THREADS, 1) lstm_bwd_kernel(
     const float* __restrict__ dout, const float* __restrict__ gh, const float* __restrict__ gc,
-    const float* __restrict__ act, const float* __restrict__ cseq, const Elem* __restrict__ c0,
-    const Elem* __restrict__ w_hh, float* dg, float* __restrict__ dh0, float* __restrict__ dc0,
+    const float* __restrict__ act, const float* __restrict__ cseq, const float* __restrict__ c0,
+    const float* __restrict__ w_hh, float* dg, float* __restrict__ dh0, float* __restrict__ dc0,
     int T, int B, int H) {
   constexpr int N = UNITS;
   using P = TileProduct<N, 4, 4>;
@@ -72,7 +67,7 @@ __global__ void __launch_bounds__(THREADS, 1) lstm_bwd_kernel(
   const int row_tiles = (B + ROWS - 1) / ROWS;
   for (int q = tid; q < N * G; q += THREADS) {
     const int u = q / G, k = q % G;
-    Ws[k * N + u] = to_f32(w_hh[(size_t)(u0 + u) * G + k]);
+    Ws[k * N + u] = w_hh[(size_t)(u0 + u) * G + k];
   }
   __syncthreads();
 
@@ -104,7 +99,7 @@ __global__ void __launch_bounds__(THREADS, 1) lstm_bwd_kernel(
         const float* a = act + ((size_t)t * B + row) * G + U;
         const float ig = a[0], fg = a[H], gg = a[2 * H], og = a[3 * H];
         const float ct = cseq[(size_t)t * B * H + at];
-        const float c_prev = t > 0 ? cseq[(size_t)(t - 1) * B * H + at] : to_f32(c0[at]);
+        const float c_prev = t > 0 ? cseq[(size_t)(t - 1) * B * H + at] : c0[at];
         const float tc = tanhf(ct);
         float dc = dh * og * (1.0f - tc * tc);
         dc += rec ? dc0[at] : (gc != nullptr ? gc[at] : 0.0f);
@@ -121,21 +116,6 @@ __global__ void __launch_bounds__(THREADS, 1) lstm_bwd_kernel(
   }
 }
 
-// Launches lstm_bwd_kernel<Elem> cooperatively on `stream` (see lstm_bwd_f32).
-template <typename Elem>
-int launch_bwd(const float* dout, const float* gh, const float* gc, const float* act, const float* cseq,
-               const Elem* c0, const Elem* w_hh, float* dg, float* dh0, float* dc0, int T, int B, int H,
-               void* stream) {
-  if (T <= 0 || B <= 0 || H <= 0 || H % UNITS != 0) return (int)cudaErrorInvalidValue;
-  void* args[] = {(void*)&dout, (void*)&gh, (void*)&gc, (void*)&act, (void*)&cseq, (void*)&c0,
-                  (void*)&w_hh, (void*)&dg, (void*)&dh0, (void*)&dc0, (void*)&T, (void*)&B, (void*)&H};
-  const cudaError_t err = launch_persistent((const void*)lstm_bwd_kernel<Elem>, (B + ROWS - 1) / ROWS,
-                                            H / UNITS, persistent_smem_bytes(4 * H, UNITS), args,
-                                            (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // Launches lstm_bwd_kernel cooperatively on `stream` (see above). gh and gc
@@ -144,13 +124,14 @@ int launch_bwd(const float* dout, const float* gh, const float* gc, const float*
 extern "C" int lstm_bwd_f32(const float* dout, const float* gh, const float* gc, const float* act,
                             const float* cseq, const float* c0, const float* w_hh, float* dg,
                             float* dh0, float* dc0, int T, int B, int H, void* stream) {
-  return launch_bwd<float>(dout, gh, gc, act, cseq, c0, w_hh, dg, dh0, dc0, T, B, H, stream);
+  if (T <= 0 || B <= 0 || H <= 0 || H % UNITS != 0) return (int)cudaErrorInvalidValue;
+  void* args[] = {(void*)&dout, (void*)&gh, (void*)&gc, (void*)&act, (void*)&cseq, (void*)&c0,
+                  (void*)&w_hh, (void*)&dg, (void*)&dh0, (void*)&dc0, (void*)&T, (void*)&B, (void*)&H};
+  const cudaError_t err = launch_persistent((const void*)lstm_bwd_kernel, (B + ROWS - 1) / ROWS, H / UNITS,
+                                            persistent_smem_bytes(4 * H, UNITS), args, (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
-// lstm_bwd_f32 for a bfloat16 forward: c0 and w_hh are bfloat16, the rest
-// float.
-extern "C" int lstm_bwd_bf16(const float* dout, const float* gh, const float* gc, const float* act,
-                             const float* cseq, const __nv_bfloat16* c0, const __nv_bfloat16* w_hh,
-                             float* dg, float* dh0, float* dc0, int T, int B, int H, void* stream) {
-  return launch_bwd<__nv_bfloat16>(dout, gh, gc, act, cseq, c0, w_hh, dg, dh0, dc0, T, B, H, stream);
-}
+// The multiple of which H must be.
+extern "C" int lstm_bwd_h_multiple() { return UNITS; }

@@ -1,5 +1,6 @@
-// Kernel B1: the multi-layer LSTM over a sequence, float32 or bfloat16 in
-// and out with float32 sums and cell, for Hopper (sm_90a). Two kernels:
+// Kernel B1: the multi-layer LSTM over a sequence in float32, for Hopper
+// (sm_90a); its bfloat16 route is lstm_bf16.cu, on the tensor cores. Two
+// kernels:
 //
 //   lstm_gates_kernel       the gates product of SGEMM class, with the cell
 //                           update in its epilogue (CELL) or without it;
@@ -32,10 +33,7 @@
 // Bound: a forward does 2 * T * L * B * 2H * 4H operations in float32 outside
 // the tensor cores (67 TFLOP/s): 0.125 ms at the eval shape (T=1, B=1000,
 // H=512, L=2), 1.28 ms at the learner shape (T=80, B=128); bytes are a tenth
-// of that. No TF32: the float32 path stays float32 (plain FMA). The same work
-// in bfloat16 is bound by the tensor cores' bfloat16 rate (989 TFLOP/s), at
-// least 15x less; this bfloat16 route still runs the float32 FMA tiles on
-// the converted values, so it is bound like the float32 one.
+// of that. No TF32: the float32 path stays float32 (plain FMA).
 //
 // Design of the gates kernel: a 128 x 128 output tile per block (128 rows by
 // 32 hidden units x 4 gates, so a thread's 8 x 8 accumulators hold all four
@@ -58,18 +56,10 @@
 // launched cooperatively; with more rows than fit, each block takes several
 // row tiles a step.
 //
-// The kernels are templated on the element type of x, h, c and the weights,
-// float (lstm_*_f32) or __nv_bfloat16 (lstm_*_bf16); activations, Gx, the
-// sums and the cell are float. In bfloat16 they compute what pallas_lstm.py's
-// kernel computes for a bfloat16 xs: products of the bfloat16 values summed
-// in float, the bias added in float, the cell in float, and h and c rounded
-// to bfloat16 at every step, the next step reading the rounded values. The
-// saved cell states (save_c, cseq) are the rounded c, float(bf16(c)), the c
-// that the next step read, so that B2's backward differentiates the function
-// the forward computed (for float the same bits as c).
+// The saved cell states (save_c, cseq) are c as stored, the c that the next
+// step reads (the bfloat16 route saves float(bf16(c)); here that is c).
 
 #include <cooperative_groups.h>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "lstm_tile.cuh"
@@ -89,13 +79,13 @@ constexpr int GA_STRIDE = GM + 4;
 // a1] . [w0; w1] + b, and y (if given) = h_out too. Without CELL: gates_out
 // = a0 . w0 + b ([M, 4H] float). save_act [M, 4H] and save_c [M, H], if given,
 // receive the activations and c_out.
-template <typename Elem, bool CELL>
+template <bool CELL>
 __global__ void __launch_bounds__(THREADS, CELL ? 2 : 1) lstm_gates_kernel(
-    const Elem* __restrict__ a0, const Elem* __restrict__ w0, int k0,
-    const Elem* __restrict__ a1, const Elem* __restrict__ w1, int k1,
-    const Elem* __restrict__ bias, const Elem* __restrict__ c_prev,
-    float* __restrict__ gates_out, Elem* __restrict__ h_out, Elem* __restrict__ c_out,
-    Elem* __restrict__ y, float* __restrict__ save_act, float* __restrict__ save_c, int M, int H) {
+    const float* __restrict__ a0, const float* __restrict__ w0, int k0,
+    const float* __restrict__ a1, const float* __restrict__ w1, int k1,
+    const float* __restrict__ bias, const float* __restrict__ c_prev,
+    float* __restrict__ gates_out, float* __restrict__ h_out, float* __restrict__ c_out,
+    float* __restrict__ y, float* __restrict__ save_act, float* __restrict__ save_c, int M, int H) {
   __shared__ __align__(16) float As[2][GK][GA_STRIDE];  // As[.][k][m]
   __shared__ __align__(16) float Ws[2][GK][GN];         // Ws[.][k][g * GU + j]
 
@@ -105,8 +95,8 @@ __global__ void __launch_bounds__(THREADS, CELL ? 2 : 1) lstm_gates_kernel(
 
   auto load_tile = [&](int kt, int buf) {
     int kb = kt * GK;
-    const Elem* a = a0;
-    const Elem* w = w0;
+    const float* a = a0;
+    const float* w = w0;
     int lda = k0;
     if (kb >= k0) {
       a = a1;
@@ -119,13 +109,13 @@ __global__ void __launch_bounds__(THREADS, CELL ? 2 : 1) lstm_gates_kernel(
       const int e = tid + THREADS * s, r = e / GK, kk = e % GK;
       int gr = m0 + r;
       gr = gr < M ? gr : M - 1;
-      Stage<Elem>::one(&As[buf][kk][r], a + (size_t)gr * lda + kb + kk);
+      Stage::one(&As[buf][kk][r], a + (size_t)gr * lda + kb + kk);
     }
 #pragma unroll
     for (int s = 0; s < GK * GN / 4 / THREADS; ++s) {
       const int q = tid + THREADS * s, kk = q / (GN / 4), c = (q % (GN / 4)) * 4;
       const int g = c / GU, j = c % GU;
-      Stage<Elem>::four(&Ws[buf][kk][c], w + (size_t)(kb + kk) * G + g * H + u0 + j);
+      Stage::four(&Ws[buf][kk][c], w + (size_t)(kb + kk) * G + g * H + u0 + j);
     }
   };
 
@@ -196,7 +186,7 @@ __global__ void __launch_bounds__(THREADS, CELL ? 2 : 1) lstm_gates_kernel(
       const int u = u0 + tx * 2 + e;
       float pre[4];
 #pragma unroll
-      for (int g = 0; g < 4; ++g) pre[g] = acc[i][2 * g + e] + to_f32(bias[g * H + u]);
+      for (int g = 0; g < 4; ++g) pre[g] = acc[i][2 * g + e] + bias[g * H + u];
       if (!CELL) {
 #pragma unroll
         for (int g = 0; g < 4; ++g) gates_out[(size_t)row * G + g * H + u] = pre[g];
@@ -205,9 +195,8 @@ __global__ void __launch_bounds__(THREADS, CELL ? 2 : 1) lstm_gates_kernel(
       const size_t at = (size_t)row * H + u;
       const float ig = sigmoid_f(pre[0]), fg = sigmoid_f(pre[1]);
       const float gg = tanhf(pre[2]), og = sigmoid_f(pre[3]);
-      const float c_new = fg * to_f32(c_prev[at]) + ig * gg;
-      const Elem c_st = from_f32<Elem>(c_new), h_st = from_f32<Elem>(og * tanhf(c_new));
-      c_out[at] = c_st;
+      const float c_new = fg * c_prev[at] + ig * gg, h_st = og * tanhf(c_new);
+      c_out[at] = c_new;
       h_out[at] = h_st;
       if (y != nullptr) y[at] = h_st;
       if (save_act != nullptr) {
@@ -217,7 +206,7 @@ __global__ void __launch_bounds__(THREADS, CELL ? 2 : 1) lstm_gates_kernel(
         s[2 * H] = gg;
         s[3 * H] = og;
       }
-      if (save_c != nullptr) save_c[at] = to_f32(c_st);
+      if (save_c != nullptr) save_c[at] = c_new;
     }
   }
 }
@@ -227,11 +216,10 @@ __global__ void __launch_bounds__(THREADS, CELL ? 2 : 1) lstm_gates_kernel(
 // (c_last holds the running c of the block's own elements between steps).
 // act [T, B, 4H] and cseq [T, B, H] (may be null) receive the activations
 // and every c_t.
-template <typename Elem>
 __global__ void __launch_bounds__(THREADS, 1) lstm_recurrence_kernel(
-    const float* __restrict__ gx, const Elem* h0, const Elem* __restrict__ c0,
-    const Elem* __restrict__ w_hh, Elem* hseq, Elem* __restrict__ h_last,
-    Elem* __restrict__ c_last, float* __restrict__ act, float* __restrict__ cseq, int T, int B,
+    const float* __restrict__ gx, const float* h0, const float* __restrict__ c0,
+    const float* __restrict__ w_hh, float* hseq, float* __restrict__ h_last,
+    float* __restrict__ c_last, float* __restrict__ act, float* __restrict__ cseq, int T, int B,
     int H) {
   constexpr int N = 4 * UNITS;
   using P = TileProduct<N, 8, 8>;
@@ -244,7 +232,7 @@ __global__ void __launch_bounds__(THREADS, 1) lstm_recurrence_kernel(
   const int row_tiles = (B + ROWS - 1) / ROWS;
   for (int q = tid; q < H * N / 4; q += THREADS) {
     const int k = q / (N / 4), c = (q % (N / 4)) * 4, g = c / UNITS, u = c % UNITS;
-    Stage<Elem>::four(Ws + k * N + c, w_hh + (size_t)k * G + g * H + u0 + u);
+    Stage::four(Ws + k * N + c, w_hh + (size_t)k * G + g * H + u0 + u);
   }
   cp_async_commit();
   cp_async_wait<0>();
@@ -252,7 +240,7 @@ __global__ void __launch_bounds__(THREADS, 1) lstm_recurrence_kernel(
 
   cg::grid_group grid = cg::this_grid();
   for (int t = 0; t < T; ++t) {
-    const Elem* h_prev = t == 0 ? h0 : hseq + (size_t)(t - 1) * B * H;
+    const float* h_prev = t == 0 ? h0 : hseq + (size_t)(t - 1) * B * H;
     for (int rt = blockIdx.x; rt < row_tiles; rt += gridDim.x) {
       const int r0 = rt * ROWS;
       float acc[8][8];
@@ -271,10 +259,9 @@ __global__ void __launch_bounds__(THREADS, 1) lstm_recurrence_kernel(
         const size_t at = (size_t)row * H + U;
         const float ig = sigmoid_f(pre[0]), fg = sigmoid_f(pre[1]);
         const float gg = tanhf(pre[2]), og = sigmoid_f(pre[3]);
-        const float c_prev = to_f32(t == 0 ? c0[at] : c_last[at]);
-        const float c_new = fg * c_prev + ig * gg;
-        const Elem c_st = from_f32<Elem>(c_new), h_st = from_f32<Elem>(og * tanhf(c_new));
-        c_last[at] = c_st;
+        const float c_prev = t == 0 ? c0[at] : c_last[at];
+        const float c_new = fg * c_prev + ig * gg, h_st = og * tanhf(c_new);
+        c_last[at] = c_new;
         hseq[(size_t)t * B * H + at] = h_st;
         if (t == T - 1) h_last[at] = h_st;
         if (act != nullptr) {
@@ -284,50 +271,12 @@ __global__ void __launch_bounds__(THREADS, 1) lstm_recurrence_kernel(
           s[2 * H] = gg;
           s[3 * H] = og;
         }
-        if (cseq != nullptr) cseq[(size_t)t * B * H + at] = to_f32(c_st);
+        if (cseq != nullptr) cseq[(size_t)t * B * H + at] = c_new;
       }
       __syncthreads();  // the sums are read before the ring is refilled
     }
     if (t + 1 < T) grid.sync();
   }
-}
-
-// Launches lstm_gates_kernel<Elem> on `stream` (see lstm_gates_f32).
-template <typename Elem>
-int launch_gates(const Elem* a0, const Elem* w0, int k0, const Elem* a1, const Elem* w1, int k1,
-                 const Elem* bias, const Elem* c_prev, float* gates_out, Elem* h_out, Elem* c_out, Elem* y,
-                 float* save_act, float* save_c, int M, int H, void* stream) {
-  const bool cell = c_prev != nullptr;
-  if (!cell) k1 = 0;
-  if (M <= 0 || H <= 0 || H % GU != 0 || k0 <= 0 || k0 % GK != 0 || k1 < 0 || k1 % GK != 0)
-    return (int)cudaErrorInvalidValue;
-  if (cell && (k1 == 0 || h_out == nullptr || c_out == nullptr)) return (int)cudaErrorInvalidValue;
-  if (!cell && gates_out == nullptr) return (int)cudaErrorInvalidValue;
-  const dim3 grid((M + GM - 1) / GM, H / GU);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (cell)
-    lstm_gates_kernel<Elem, true><<<grid, THREADS, 0, s>>>(a0, w0, k0, a1, w1, k1, bias, c_prev, nullptr,
-                                                          h_out, c_out, y, save_act, save_c, M, H);
-  else
-    lstm_gates_kernel<Elem, false><<<grid, THREADS, 0, s>>>(a0, w0, k0, nullptr, nullptr, 0, bias, nullptr,
-                                                           gates_out, nullptr, nullptr, nullptr, nullptr,
-                                                           nullptr, M, H);
-  return (int)cudaGetLastError();
-}
-
-// Launches lstm_recurrence_kernel<Elem> cooperatively on `stream` (see
-// lstm_recurrence_f32).
-template <typename Elem>
-int launch_recurrence(const float* gx, const Elem* h0, const Elem* c0, const Elem* w_hh, Elem* hseq,
-                      Elem* h_last, Elem* c_last, float* act, float* cseq, int T, int B, int H, void* stream) {
-  if (T <= 0 || B <= 0 || H <= 0 || H % GU != 0) return (int)cudaErrorInvalidValue;
-  void* args[] = {(void*)&gx, (void*)&h0, (void*)&c0, (void*)&w_hh, (void*)&hseq, (void*)&h_last,
-                  (void*)&c_last, (void*)&act, (void*)&cseq, (void*)&T, (void*)&B, (void*)&H};
-  const cudaError_t err = launch_persistent((const void*)lstm_recurrence_kernel<Elem>,
-                                            (B + ROWS - 1) / ROWS, H / UNITS,
-                                            persistent_smem_bytes(H, 4 * UNITS), args, (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -341,19 +290,22 @@ extern "C" int lstm_gates_f32(const float* a0, const float* w0, int k0, const fl
                               const float* w1, int k1, const float* bias, const float* c_prev,
                               float* gates_out, float* h_out, float* c_out, float* y,
                               float* save_act, float* save_c, int M, int H, void* stream) {
-  return launch_gates<float>(a0, w0, k0, a1, w1, k1, bias, c_prev, gates_out, h_out, c_out, y, save_act,
-                             save_c, M, H, stream);
-}
-
-// lstm_gates_f32 with bfloat16 x, h, c, y and weights; gates_out, save_act
-// and save_c stay float.
-extern "C" int lstm_gates_bf16(const __nv_bfloat16* a0, const __nv_bfloat16* w0, int k0,
-                               const __nv_bfloat16* a1, const __nv_bfloat16* w1, int k1,
-                               const __nv_bfloat16* bias, const __nv_bfloat16* c_prev, float* gates_out,
-                               __nv_bfloat16* h_out, __nv_bfloat16* c_out, __nv_bfloat16* y,
-                               float* save_act, float* save_c, int M, int H, void* stream) {
-  return launch_gates<__nv_bfloat16>(a0, w0, k0, a1, w1, k1, bias, c_prev, gates_out, h_out, c_out, y,
-                                     save_act, save_c, M, H, stream);
+  const bool cell = c_prev != nullptr;
+  if (!cell) k1 = 0;
+  if (M <= 0 || H <= 0 || H % GU != 0 || k0 <= 0 || k0 % GK != 0 || k1 < 0 || k1 % GK != 0)
+    return (int)cudaErrorInvalidValue;
+  if (cell && (k1 == 0 || h_out == nullptr || c_out == nullptr)) return (int)cudaErrorInvalidValue;
+  if (!cell && gates_out == nullptr) return (int)cudaErrorInvalidValue;
+  const dim3 grid((M + GM - 1) / GM, H / GU);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (cell)
+    lstm_gates_kernel<true><<<grid, THREADS, 0, s>>>(a0, w0, k0, a1, w1, k1, bias, c_prev, nullptr, h_out,
+                                                     c_out, y, save_act, save_c, M, H);
+  else
+    lstm_gates_kernel<false><<<grid, THREADS, 0, s>>>(a0, w0, k0, nullptr, nullptr, 0, bias, nullptr,
+                                                      gates_out, nullptr, nullptr, nullptr, nullptr, nullptr,
+                                                      M, H);
+  return (int)cudaGetLastError();
 }
 
 // Launches lstm_recurrence_kernel cooperatively on `stream` (see above).
@@ -362,17 +314,14 @@ extern "C" int lstm_gates_bf16(const __nv_bfloat16* a0, const __nv_bfloat16* w0,
 extern "C" int lstm_recurrence_f32(const float* gx, const float* h0, const float* c0,
                                    const float* w_hh, float* hseq, float* h_last, float* c_last,
                                    float* act, float* cseq, int T, int B, int H, void* stream) {
-  return launch_recurrence<float>(gx, h0, c0, w_hh, hseq, h_last, c_last, act, cseq, T, B, H, stream);
-}
-
-// lstm_recurrence_f32 with bfloat16 h0, c0, W_hh and outputs; gx, act and
-// cseq stay float.
-extern "C" int lstm_recurrence_bf16(const float* gx, const __nv_bfloat16* h0, const __nv_bfloat16* c0,
-                                    const __nv_bfloat16* w_hh, __nv_bfloat16* hseq, __nv_bfloat16* h_last,
-                                    __nv_bfloat16* c_last, float* act, float* cseq, int T, int B, int H,
-                                    void* stream) {
-  return launch_recurrence<__nv_bfloat16>(gx, h0, c0, w_hh, hseq, h_last, c_last, act, cseq, T, B, H,
-                                          stream);
+  if (T <= 0 || B <= 0 || H <= 0 || H % GU != 0) return (int)cudaErrorInvalidValue;
+  void* args[] = {(void*)&gx, (void*)&h0, (void*)&c0, (void*)&w_hh, (void*)&hseq, (void*)&h_last,
+                  (void*)&c_last, (void*)&act, (void*)&cseq, (void*)&T, (void*)&B, (void*)&H};
+  const cudaError_t err = launch_persistent((const void*)lstm_recurrence_kernel, (B + ROWS - 1) / ROWS,
+                                            H / UNITS, persistent_smem_bytes(H, 4 * UNITS), args,
+                                            (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 // The multiple of which H must be.

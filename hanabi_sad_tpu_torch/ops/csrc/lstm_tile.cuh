@@ -1,5 +1,6 @@
-// Pieces shared by the LSTM kernels of lstm_seq.cu (B1) and lstm_bwd.cu (B2's
-// backward), for Hopper (sm_90a).
+// Pieces shared by the float32 LSTM kernels of lstm_seq.cu (B1) and
+// lstm_bwd.cu (B2's backward), for Hopper (sm_90a); lstm_bf16.cu takes its
+// constants, cp.async groups, sigmoid and cooperative launcher from here.
 //
 // The two persistent recurrence kernels have one shape: a block owns 32 batch
 // rows x 16 hidden units, keeps the matching slice of W_hh resident in shared
@@ -14,7 +15,6 @@
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
@@ -32,19 +32,6 @@ constexpr int RING_FLOATS = WARPS * STAGES * STAGE_FLOATS;
 
 __device__ __forceinline__ float sigmoid_f(float v) { return 1.0f / (1.0f + expf(-v)); }
 
-// The element types of the kernels: float and bfloat16. Sums, activations
-// and the cell are float whatever the element type; a value is rounded to
-// the element type (nearest even) where it is stored.
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename Elem>
-__device__ __forceinline__ Elem from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) { return __float2bfloat16_rn(v); }
-
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -54,26 +41,10 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Copies into shared memory, converted to float. The generic version loads
-// and converts synchronously (bfloat16: 2-byte loads, no alignment needed);
-// float copies bytes with cp.async. `four_l2` reads through L2 only
-// (cp.async.cg / __ldcg): it is used for data that other blocks of the same
+// Copies of floats into shared memory with cp.async. `four_l2` reads through
+// L2 only (cp.async.cg): it is used for data that other blocks of the same
 // launch wrote before a grid barrier, which a stale L1 line must not hide.
-template <typename Elem>
 struct Stage {
-  __device__ static void one(float* s, const Elem* g) { *s = to_f32(*g); }
-  __device__ static void four(float* s, const Elem* g) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[j] = to_f32(g[j]);
-  }
-  __device__ static void four_l2(float* s, const Elem* g) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[j] = to_f32(__ldcg(g + j));
-  }
-};
-
-template <>
-struct Stage<float> {
   __device__ static void one(float* s, const float* g) {
     const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(s));
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(a), "l"(g) : "memory");
@@ -107,8 +78,7 @@ struct TileProduct {
   __device__ static int row(int i) { return (threadIdx.x & 31) / NCG + NRG * i; }
   __device__ static int col(int n) { return (n / 4) * 4 * NCG + 4 * ((threadIdx.x & 31) % NCG) + n % 4; }
 
-  template <typename Elem>
-  __device__ static void run(const Elem* A, int lda, int K, int row0, int nrows, const float* Ws,
+  __device__ static void run(const float* A, int lda, int K, int row0, int nrows, const float* Ws,
                              float* ring, float (&acc)[TM][TN]) {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const int ry = lane / NCG, cx = lane % NCG;
@@ -130,7 +100,7 @@ struct TileProduct {
         const int q = lane + 32 * s, r = q >> 2, k4 = (q & 3) * 4;
         int gr = row0 + r;
         gr = gr < nrows ? gr : nrows - 1;
-        Stage<Elem>::four_l2(st + r * A_STRIDE + k4, A + (size_t)gr * lda + k0 + k4);
+        Stage::four_l2(st + r * A_STRIDE + k4, A + (size_t)gr * lda + k0 + k4);
       }
     };
 

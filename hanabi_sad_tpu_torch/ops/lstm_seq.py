@@ -4,8 +4,9 @@ with a backward kernel and its plain version.
 
 B1 is the counterpart of `hanabi_sad_tpu/ops/experimental/pallas_lstm.py:
 lstm_seq_pallas` and of the scan in `hanabi_sad_tpu/models/lstm.py`.
-`lstm_seq` launches the CUDA kernels of `csrc/lstm_seq.cu` for a CUDA tensor
-and runs `lstm_seq_plain` for a CPU tensor; for a CUDA tensor it launches the
+`lstm_seq` launches the CUDA kernels of `csrc/lstm_seq.cu` (float32) or
+`csrc/lstm_bf16.cu` (bfloat16) for a CUDA tensor and runs `lstm_seq_plain`
+for a CPU tensor; for a CUDA tensor it launches the
 kernels or raises, it never falls back. A call is L launches at T = 1 (the
 gates kernel with the cell update, per layer) and 2 L at T > 1 (per layer,
 the input projection for all T steps, then one persistent launch over the
@@ -17,7 +18,8 @@ the CPU) told to keep what the backward needs (`Saved`): each layer's gate
 activations i, f, g, o, its cell states and its h sequence; the outputs are
 the same bits as without. Its backward (`lstm_seq_bwd`) walks the layers top
 down: the recurrence of backpropagation through time runs in the kernel of
-`csrc/lstm_bwd.cu` (`lstm_bwd_recurrence_plain` on the CPU), and the
+`csrc/lstm_bwd.cu` or `csrc/lstm_bf16.cu` (`lstm_bwd_recurrence_plain` on
+the CPU), and the
 products that do not recur (dW_ih, dW_hh, db and dX) are batched matrix
 products over all steps at once, as the JAX package leaves them to XLA in the
 scan's VJP. Nothing recomputes the forward. `lstm_seq_bwd_plain` is the same
@@ -35,7 +37,11 @@ cell in float32, and h and c rounded to bfloat16 at every step, the next
 step reading the rounded values. The saved gates and cell states are
 float32 (the cell states are the rounded ones, which the next step read),
 and B2's backward runs in float32 from them; it returns each grad in its
-input's dtype.
+input's dtype. The bfloat16 kernels compute this on the tensor cores
+(bfloat16 products, float32 sums); their backward's product takes each
+float32 dG value as three bfloat16 terms (`split_bf16`), which add up to it
+exactly, so it loses nothing to float32. They take H a multiple of 64 and at
+most 512, and 16-byte aligned tensors.
 """
 
 from __future__ import annotations
@@ -115,6 +121,19 @@ def lstm_seq_plain(params: LSTMParams, xs: torch.Tensor, hidden: Hidden, save: b
 DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}  # the kernels' element types
 
 
+def split_bf16(x: torch.Tensor, terms: int = 3) -> List[torch.Tensor]:
+    """x (float32) as `terms` bfloat16 tensors whose float32 sum is x, as
+    the bfloat16 backward kernel splits dG (`csrc/lstm_mma.cuh:split3_bf16`):
+    each term rounds (nearest even) what the terms before it left, and each
+    remainder is exact in float32. Three terms hold a float32 value's 24
+    significant bits exactly (for normal values), two hold 16."""
+    out, rest = [], x
+    for _ in range(terms):
+        out.append(rest.bfloat16())
+        rest = rest - out[-1].float()
+    return out
+
+
 def _check_cuda(tensors, what: str) -> str:
     """Checks that every tensor lies on one CUDA device, is contiguous and
     has one dtype, float32 or bfloat16; returns that dtype's suffix of the
@@ -138,38 +157,66 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _load_kernels(sources: Dict[str, str], h_rules, argtypes):
+    """Builds (at first use, one nvcc per source, in parallel) and loads the
+    libraries of `sources` ({dtype suffix: source}), and binds each suffix's
+    entry points `<name>_<suffix>` with `argtypes[name]`, returning an int.
+    `h_rules` names each suffix's entry points that give the H multiple and
+    the largest H (None: no largest). Returns ({suffix: {name: fn}}, {suffix:
+    (H multiple, largest H or None)}, {source: the -Xptxas -v lines of this
+    build, empty if it was built before})."""
+    built = build.build_many(list(sources.values()))
+    fns, h_rule = {}, {}
+    for suffix, source in sources.items():
+        lib = built[source][0]
+        fns[suffix] = {}
+        for name, types in argtypes.items():
+            fn = fns[suffix][name] = getattr(lib, f"{name}_{suffix}")
+            fn.argtypes, fn.restype = types, ctypes.c_int
+        multiple, largest = h_rules[suffix]
+        h_rule[suffix] = (getattr(lib, multiple)(), None if largest is None else getattr(lib, largest)())
+    return fns, h_rule, {source: built[source][1] for source in sources.values()}
+
+
+def _check_shape(h_rule, suffix: str, H: int, tensors, what: str):
+    """Raises if the `suffix` kernels do not take hidden size H, or (bfloat16,
+    whose kernels copy 16 bytes at a time) a tensor is not 16-byte aligned."""
+    multiple, largest = h_rule[suffix]
+    if H % multiple != 0 or (largest is not None and H > largest):
+        cond = f"H % {multiple} == 0" + (f" and H <= {largest}" if largest is not None else "")
+        raise ValueError(f"{what} {suffix} kernels need {cond}, got H={H}")
+    if suffix == "bf16" and any(t is not None and t.data_ptr() % 16 != 0 for t in tensors):
+        raise ValueError(f"{what} bf16 kernels need 16-byte aligned tensors")
+
+
 class LstmSeqKernel:
     """Wrapper of B1's CUDA kernels. `launches` counts kernel launches (L per
     call at T = 1, 2 L at T > 1), `launches_by_kernel` splits them into
     "gates" and "recurrence", `launches_by_dtype` into "f32" and "bf16"
-    (the entry points `lstm_*_f32` and `lstm_*_bf16`), `calls` counts calls;
-    all are plain integers that a caller may reset."""
+    (the entry points `lstm_*_f32` of `csrc/lstm_seq.cu` and `lstm_*_bf16`
+    of `csrc/lstm_bf16.cu`), `calls` counts calls; all are plain integers
+    that a caller may reset."""
 
-    source = "lstm_seq.cu"
+    sources = {"f32": "lstm_seq.cu", "bf16": "lstm_bf16.cu"}
+    h_rules = {"f32": ("lstm_h_multiple", None), "bf16": ("lstm_bf16_h_multiple", "lstm_bf16_h_max")}
 
     def __init__(self):
         self.launches = 0
         self.launches_by_kernel = {"gates": 0, "recurrence": 0}
         self.launches_by_dtype = dict.fromkeys(DTYPES.values(), 0)
         self.calls = 0
-        self._lib = None
-        self.ptxas: List[str] = []
+        self._fns = None
+        self.ptxas: Dict[str, List[str]] = {}
 
     def load(self):
-        """Build (at first use) and bind the library."""
-        if self._lib is None:
-            lib, self.ptxas = build.build(self.source)
+        """Build (at first use) and bind the libraries; returns {dtype
+        suffix: {"lstm_gates": fn, "lstm_recurrence": fn}}."""
+        if self._fns is None:
             p, i = ctypes.c_void_p, ctypes.c_int
-            for suffix in DTYPES.values():
-                gates, recurrence = getattr(lib, f"lstm_gates_{suffix}"), getattr(lib, f"lstm_recurrence_{suffix}")
-                gates.argtypes = [p, p, i, p, p, i] + [p] * 8 + [i, i, p]
-                gates.restype = i
-                recurrence.argtypes = [p] * 9 + [i, i, i, p]
-                recurrence.restype = i
-            lib.lstm_h_multiple.restype = i
-            self._h_multiple = lib.lstm_h_multiple()
-            self._lib = lib
-        return self._lib
+            argtypes = {"lstm_gates": [p, p, i, p, p, i] + [p] * 8 + [i, i, p],
+                        "lstm_recurrence": [p] * 9 + [i, i, i, p]}
+            self._fns, self._h_rule, self.ptxas = _load_kernels(self.sources, self.h_rules, argtypes)
+        return self._fns
 
     def reset(self):
         self.launches = self.calls = 0
@@ -197,10 +244,9 @@ class LstmSeqKernel:
                 raise ValueError(f"lstm_seq kernel needs in_dim == hid_dim: w_ih {tuple(p['w_ih'].shape)}")
             if p["w_hh"].shape != (H, 4 * H) or p["b"].shape != (4 * H,):
                 raise ValueError("w_hh must be [H, 4H] and b [4H]")
-        lib = self.load()
-        gates_fn, recurrence_fn = getattr(lib, f"lstm_gates_{suffix}"), getattr(lib, f"lstm_recurrence_{suffix}")
-        if H % self._h_multiple != 0:
-            raise ValueError(f"lstm_seq kernel needs H % {self._h_multiple} == 0, got H={H}")
+        fns = self.load()[suffix]
+        gates_fn, recurrence_fn = fns["lstm_gates"], fns["lstm_recurrence"]
+        _check_shape(self._h_rule, suffix, H, [xs, h0, c0] + _flatten(params), "lstm_seq")
 
         with torch.cuda.device(xs.device):
             stream = torch.cuda.current_stream().cuda_stream
@@ -275,34 +321,32 @@ def lstm_bwd_recurrence_plain(dout, gh, gc, act, cseq, c0, w_hh):
 
 
 class LstmBwdKernel:
-    """Wrapper of B2's backward kernel (`csrc/lstm_bwd.cu`), one launch per
-    layer; called as `lstm_bwd_recurrence_plain` is. c0 and w_hh are float32
-    (`lstm_bwd_f32`) or bfloat16 (`lstm_bwd_bf16`), the rest float32.
-    `launches` counts kernel launches, `launches_by_dtype` splits them by
-    entry point; a caller may reset both."""
+    """Wrapper of B2's backward kernel, one launch per layer; called as
+    `lstm_bwd_recurrence_plain` is. c0 and w_hh are float32 (`lstm_bwd_f32`
+    of `csrc/lstm_bwd.cu`) or bfloat16 (`lstm_bwd_bf16` of
+    `csrc/lstm_bf16.cu`), the rest float32. `launches` counts kernel
+    launches, `launches_by_dtype` splits them by entry point; a caller may
+    reset both."""
 
-    source = "lstm_bwd.cu"
+    sources = {"f32": "lstm_bwd.cu", "bf16": "lstm_bf16.cu"}
+    h_rules = {"f32": ("lstm_bwd_h_multiple", None), "bf16": ("lstm_bf16_h_multiple", "lstm_bf16_h_max")}
 
     def __init__(self):
         self.reset()
         self._fns = None
-        self.ptxas: List[str] = []
+        self.ptxas: Dict[str, List[str]] = {}
 
     def reset(self):
         self.launches = 0
         self.launches_by_dtype = dict.fromkeys(DTYPES.values(), 0)
 
     def load(self):
-        """Build (at first use) and bind the library."""
+        """Build (at first use) and bind the libraries; returns {dtype
+        suffix: fn}."""
         if self._fns is None:
-            lib, self.ptxas = build.build(self.source)
-            fns = {}
-            for suffix in DTYPES.values():
-                fn = getattr(lib, f"lstm_bwd_{suffix}")
-                fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-                fn.restype = ctypes.c_int
-                fns[suffix] = fn
-            self._fns = fns
+            argtypes = {"lstm_bwd": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p]}
+            fns, self._h_rule, self.ptxas = _load_kernels(self.sources, self.h_rules, argtypes)
+            self._fns = {k: v["lstm_bwd"] for k, v in fns.items()}
         return self._fns
 
     def __call__(self, dout, gh, gc, act, cseq, c0, w_hh):
@@ -317,6 +361,7 @@ class LstmBwdKernel:
             if t is not None and tuple(t.shape) != shape:
                 raise ValueError(f"lstm_bwd kernel: {name} must be {list(shape)}, got {list(t.shape)}")
         fn = self.load()[suffix]
+        _check_shape(self._h_rule, suffix, H, [dout, gh, gc, act, cseq, c0, w_hh], "lstm_bwd")
         with torch.cuda.device(dout.device):
             dg = torch.empty((T, B, 4 * H), dtype=dout.dtype, device=dout.device)
             dh0, dc0 = torch.empty_like(dout[0]), torch.empty_like(dout[0])

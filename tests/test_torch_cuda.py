@@ -437,10 +437,11 @@ def bf16_ulp(x):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,B", [(1, 2048), (1, 3072), (1, 13)])
+@pytest.mark.parametrize("T,B", [(1, 2048), (1, 3072), (1, 13), (1, 1000)])
 def test_b1_bf16_matches_plain_at_one_step_on_card(card, T, B):
-    """B1's bf16 entry points at the rollout shapes (2 and 3 players) and a
-    ragged batch against the plain bf16 version: every output within 1
+    """B1's bf16 entry points at the rollout shapes (2 and 3 players) and
+    batches that are no multiple of the 32-row tiles (13, the eval's 1000)
+    against the plain bf16 version: every output within 1
     bfloat16 ulp at its scale (one rounding of float32 sums taken in another
     order), through `models/lstm.py` from float32 weights and hidden, whose
     dtype the result keeps."""
@@ -579,6 +580,58 @@ def test_b1_and_b2_bf16_give_the_same_bits_twice_on_card(card):
     first = grads()
     assert lstm_bwd_kernel.launches_by_dtype["bf16"] == bwd + 2
     assert all(torch.equal(x, y) for x, y in zip(first, grads()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B", [(3, 1000), (5, 13), (5, 45)])
+def test_b1_and_b2_bf16_over_many_or_ragged_rows_on_card(card, T, B):
+    """The bf16 kernels where B is more row tiles than the card holds at once
+    (1000) or no multiple of them (13, 45): every step of B1's saved
+    trajectory no further from a float64 step than twice the plain bf16
+    version's (chip_smoke.py's rule (b)), and B2's backward kernel over that
+    trajectory within 1e-5 of float64 BPTT relative to its largest value
+    (rounding over 5 steps is about 1e-7; a row or unit read wrong would be
+    O(1))."""
+    params, xs, h0, c0 = lstm_inputs(T, B, 512, 2, seed=13, device=card)
+    pb = [{k: v.bfloat16() for k, v in p.items()} for p in params]
+    xs, h0, c0 = xs.bfloat16(), h0.bfloat16(), c0.bfloat16()
+    with torch.no_grad():
+        saved = lstm_seq_kernel(pb, xs, (h0, c0), save=True)[2]
+        p_saved = lstm_seq_plain(pb, xs, (h0, c0), save=True)[2]
+    k_gaps, p_gaps = step_gaps(pb, xs, (h0, c0), saved), step_gaps(pb, xs, (h0, c0), p_saved)
+    for part in ("act", "h", "c"):
+        assert k_gaps[part] <= 2.0 * p_gaps[part], (part, k_gaps, p_gaps)
+    rng = np.random.RandomState(14)
+    cot = [torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(card)
+           for shape in ((T, B, 512), (2, B, 512), (2, B, 512))]
+    launches = lstm_bwd_kernel.launches_by_dtype["bf16"]
+    gaps, _ = bwd_gaps(pb, (h0, c0), saved, cot)
+    assert lstm_bwd_kernel.launches_by_dtype["bf16"] == launches + 2
+    assert np.all(gaps <= 1e-5), gaps
+
+
+@pytest.mark.cuda
+def test_bf16_kernels_refuse_what_they_do_not_take(card):
+    """The bf16 kernels take H a multiple of 64 up to 512 and 16-byte aligned
+    tensors; the wrappers raise a ValueError that names the condition, for
+    shapes the float32 kernels take (H = 96)."""
+    for H, match in ((96, "H % 64 == 0"), (1024, "H <= 512")):
+        params, xs, h0, c0 = lstm_inputs(1, 4, H, 1, seed=15, device=card)
+        if H == 96:
+            lstm_seq_kernel(params, xs, (h0, c0))  # float32 takes it
+        pb = [{k: v.bfloat16() for k, v in p.items()} for p in params]
+        with pytest.raises(ValueError, match=match):
+            lstm_seq_kernel(pb, xs.bfloat16(), (h0.bfloat16(), c0.bfloat16()))
+        f32 = lambda *shape: torch.zeros(*shape, device=card)
+        with pytest.raises(ValueError, match=match):
+            lstm_bwd_kernel(f32(2, 4, H), None, None, f32(2, 4, 4 * H), f32(2, 4, H), c0[0].bfloat16().contiguous(),
+                            pb[0]["w_hh"])
+    params, xs, h0, c0 = lstm_inputs(1, 4, 512, 1, seed=16, device=card)
+    pb = [{k: v.bfloat16() for k, v in p.items()} for p in params]
+    shifted = torch.empty(xs.numel() + 1, dtype=torch.bfloat16, device=card)[1:].view(xs.shape)
+    shifted.copy_(xs)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        lstm_seq_kernel(pb, shifted, (h0.bfloat16(), c0.bfloat16()))
 
 
 def kernels_vs_plain_update(setup, state, card, monkeypatch):
