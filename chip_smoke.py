@@ -80,11 +80,26 @@ Phases, each printing JSON lines (any failure exits nonzero):
               cell, within XP_SEMS SEMs of docs/runs/xp_op_r5d.txt; their
               relabel drops within OP_DROP_BAND; the flagship's relabel
               drop within RELABEL_SEMS paired SEMs of the JAX package's;
+     train_aligned  the flagship trainer (float32) in rollout_mode aligned,
+              warm-started: one collect chunk (1024 episodes, the online net
+              alone a step, then the initial priorities' target forward
+              through B1 at [80, 2048]), its priorities through the kernels
+              against the plain versions (PRIORITY_RTOL); B1 at [80, 2048]
+              against float64 (the float32 rule) and timed beside its plain
+              version, cuDNN and its bound; 2 train chunks within
+              ALIGNED_BANDS; one sgd_update kernels vs plain (SGD_REL_TOL);
+     train_knobs  the bf16 flagship (continuous) with snapshot_sampling and
+              stacked_td on, warm-started: one collect chunk, 2 train chunks
+              within BANDS, each with its 16 B3 launches; from one cloned
+              state, a chunk of one update with the snapshot on and off gives
+              the same bits (params, replay weights, loss) (stacked_td runs
+              the learner's two forwards as without it: the same numbers);
   7. kernels  one {"kernels": [...]} line for B1 and B2 in float32 and in
               bfloat16 (with whether their SASS uses the tensor cores, their
-              per-step µs, B2's split and B1 at the exact-priority shape), and
-              B3, with the launches of the later phases; every number on it
-              is measured by this run but the bound, which it computes.
+              per-step µs, B2's split and B1 at the exact-priority and the
+              aligned-priority shapes), and B3, with the launches of the later
+              phases; every number on it is measured by this run but the
+              bound, which it computes.
 The line before the last is the card's name and power limit as nvidia-smi
 prints them; the last line is {"ok": true, "device": {...}}.
 
@@ -96,6 +111,7 @@ import faulthandler
 
 faulthandler.dump_traceback_later(900, exit=True)
 
+import dataclasses  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
 import os  # noqa: E402
@@ -248,6 +264,23 @@ JAX_OP_RELABEL_DROPS = [-0.01, -0.07]
 OP_DROP_BAND = 0.3
 JAX_FLAGSHIP_RELABEL_DROP = 1.00
 RELABEL_SEMS = 4.0
+# Phase train_aligned: the aligned initial priorities' target forward, one
+# B1 call over 1024 episodes x 2 seats of 80 steps, checked by the float32
+# rule over F64_SEEDS_WIDE inputs. ALIGNED_BANDS are BANDS' widths around
+# the JAX package on the CPU (scripts/jax_warmstart_reference.py --set
+# rollout_mode=aligned, 1024 envs, seeds 9-11, the 2 train chunks after one
+# collect chunk): loss 4.99-5.52, rl_loss 0.17-0.24, aux1 0.389-0.399,
+# grad_norm 14.5-29.2, chunk_score 23.39-23.75, chunk_len 67.82-68.12; the
+# collect chunks 23.54-23.74 and 67.90-67.98.
+B1_ALIGNED = (80, 2048)
+ALIGNED_BANDS = {
+    "loss": (3.5, 8.0),
+    "rl_loss": (0.05, 0.5),
+    "aux1": (0.3, 0.5),
+    "grad_norm": (3.0, 150.0),
+    "chunk_score": (22.5, 24.5),
+    "chunk_len": (62.0, 74.0),
+}
 # Tensor-core instructions in SASS: mma.sync compiles to HMMA, wgmma to HGMMA.
 TENSOR_CORE_SASS = ("HMMA", "HGMMA")
 # The kernels (by a part of their names) behind each LSTM entry point.
@@ -458,7 +491,7 @@ def main():
     from hanabi_sad_tpu_torch.ops.lstm_seq import (
         LstmSeqDiff, lstm_bwd_kernel, lstm_bwd_recurrence_plain, lstm_seq_diff, lstm_seq_kernel, lstm_seq_plain)
     from hanabi_sad_tpu_torch.replay import prioritized as replay_mod
-    from hanabi_sad_tpu_torch.rollout import continuous
+    from hanabi_sad_tpu_torch.rollout import continuous, runner
     from hanabi_sad_tpu_torch.tools import crossplay_matrix, loaders
     from hanabi_sad_tpu_torch.train import checkpoint as ckpt
     from hanabi_sad_tpu_torch.train import learner, selfplay
@@ -1045,13 +1078,12 @@ def main():
         kernel path's metrics and the relative gaps."""
         idx, is_w = replay_mod.sample_indices(st.replay, setup.replay, setup.train.batchsize,
                                               generator=torch.Generator(device=dev).manual_seed(seed))
-        rows = replay_mod.gather_rows(st.replay, idx)
-        s_k, m_k = learner.sgd_update(setup, optimizer, copy_of(st), presampled=(rows, is_w, idx))
+        s_k, m_k = learner.sgd_update(setup, optimizer, copy_of(st), presampled=(is_w, idx))
         kernel_sample_batch = sb.sample_batch
         lstm_mod.lstm_seq, sb.sample_batch = lstm_seq_plain, sb.sample_batch_plain
         try:
             before = counts()
-            s_p, m_p = learner.sgd_update(setup, optimizer, copy_of(st), presampled=(rows, is_w, idx))
+            s_p, m_p = learner.sgd_update(setup, optimizer, copy_of(st), presampled=(is_w, idx))
             if counts() != before:
                 fail("the plain sgd_update launched a kernel")
         finally:
@@ -1062,9 +1094,9 @@ def main():
             "grad_norm": abs(float(m_k["grad_norm"]) - float(m_p["grad_norm"])) / abs(float(m_p["grad_norm"])),
             "priority": float((p_k - p_p).abs().max()) / float(p_p.abs().max()),
         }
-        return (rows, is_w, idx), m_k, gaps
+        return (is_w, idx), m_k, gaps
 
-    (rows, is_w, idx), m_k, gaps = kernels_vs_plain(setup, optimizer, state, seed=4)
+    (is_w, idx), m_k, gaps = kernels_vs_plain(setup, optimizer, state, seed=4)
     copy_state = lambda: copy_of(state)
     emit({"phase": "train", "check": "sgd_update kernels vs plain", "loss": float(m_k["loss"]),
           "grad_norm": float(m_k["grad_norm"]), "rel_gap": gaps, "rel_tol": SGD_REL_TOL})
@@ -1113,6 +1145,8 @@ def main():
 
     # A train_state payload saved and restored into a fresh state: one
     # sgd_update from each on the same presampled batch gives the same bits.
+    # The payload holds no replay, so the restored state is given a copy of
+    # the saved state's ring to read the batch from.
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "latest.pkl")
         t0 = time.time()
@@ -1123,8 +1157,9 @@ def main():
         restore_s = time.time() - t0
     generators_equal = all(torch.equal(a.get_state(), b.get_state()) for a, b in
                            ((state.env_gen, restored.env_gen), (state.sample_gen, restored.sample_gen)))
-    s_a, m_a = learner.sgd_update(setup, optimizer, copy_state(), presampled=(rows, is_w, idx))
-    s_b, m_b = learner.sgd_update(setup, optimizer, restored, presampled=(rows, is_w, idx))
+    s_a, m_a = learner.sgd_update(setup, optimizer, copy_state(), presampled=(is_w, idx))
+    s_b, m_b = learner.sgd_update(setup, optimizer, restored._replace(replay=copy_state().replay),
+                                  presampled=(is_w, idx))
     pairs = {
         "metrics": [(m_a[k], m_b[k]) for k in m_a],
         "online": list(zip(learner.param_leaves(s_a.params.online), learner.param_leaves(s_b.params.online))),
@@ -1141,7 +1176,7 @@ def main():
           "restore_s": restore_s, "num_update": s_b.num_update, "same_bits": same})
     if not all(same.values()):
         fail(f"sgd_update after save and restore differs: {same}")
-    del restored, s_a, s_b, state, rows
+    del restored, s_a, s_b, state
     torch.cuda.empty_cache()
 
     def collect_phase(label, setup, state, expect_collect):
@@ -1460,6 +1495,152 @@ def main():
         fail(f"flagship relabel drop {flag_drop} not within {RELABEL_SEMS} paired SEMs {flag_drop_sems[0]} "
              f"of the JAX package's {JAX_FLAGSHIP_RELABEL_DROP}")
 
+    # 6h. train aligned: the flagship trainer (float32) in rollout_mode
+    # aligned, warm-started, burn-in cut to one collect chunk of 1024
+    # episodes. A collect steps the online net alone (T x L launches of B1 at
+    # T = 1), then the initial priorities' target forward is one B1 call at
+    # [80, 2048] (2 L launches).
+    cfg = make_config("sad_2p", pred_weight=0.25, burn_in_frames=2048, rollout_mode="aligned")
+    setup = learner.make_setup(cfg)
+    state = selfplay.load_model(FLAGSHIP, learner.init_train_state(setup, setup.train.seed, dev))
+    optimizer = learner.make_optimizer(setup.train)
+    emit({"phase": "train_aligned", "config": {"preset": "sad_2p", "pred_weight": 0.25, "rollout_mode": "aligned",
+                                               "burn_in_frames": 2048, **shape},
+          "actor": state.actor is not None, "bands": ALIGNED_BANDS})
+    if state.actor is not None:
+        fail("train_aligned: an aligned train state carries a continuous actor")
+    prio_launches = dict.fromkeys(expect_collect, 0)
+    prio_launches.update(b1=2 * L, b1_gates=L, b1_recurrence=L)
+    steps = setup.train.max_len
+    aligned_collect = {k: v + prio_launches[k] for k, v in dict(expect_collect, b1=steps * L, b1_gates=steps * L).items()}
+    aligned_train = {k: v - expect_collect[k] + aligned_collect[k] for k, v in expect_train.items()}
+    chunks_seen = []
+    run_chunk = runner.run_episode_chunk
+    runner.run_episode_chunk = lambda *a, **k: chunks_seen.append(run_chunk(*a, **k)) or chunks_seen[-1]
+    try:
+        state = collect_phase("train_aligned", setup, state, aligned_collect)
+    finally:
+        runner.run_episode_chunk = run_chunk
+    # The collected episodes' initial priorities, through B1 and through the
+    # plain LSTM; the replay holds the kernels' priorities^alpha.
+    out = chunks_seen.pop()
+    episodes = runner.chunk_to_episodes(out, setup.agent)
+    batch = runner.episodes_to_batch(episodes)
+    online_qa, greedy_a = runner.rollout_priority_inputs(out, setup.agent)
+    reset_counts()
+    prio_k = r2d2_agent.compute_priority_from_rollout(state.params, setup.agent, batch, online_qa, greedy_a)
+    aligned_prio_counts = counts()
+    lstm_mod.lstm_seq = lstm_seq_plain
+    try:
+        prio_p = r2d2_agent.compute_priority_from_rollout(state.params, setup.agent, batch, online_qa, greedy_a)
+    finally:
+        lstm_mod.lstm_seq = kernel_lstm_seq
+    if counts() != aligned_prio_counts:
+        fail("train_aligned: the plain priorities launched a kernel")
+    M = prio_k.shape[0]
+    in_replay = bool(torch.equal(state.replay.weight[:M], prio_k.pow(setup.replay.alpha)))
+    pk, pp = prio_k.double(), prio_p.double()
+    aligned_rel = float(((pk - pp).abs() / pp.abs().clamp(min=1e-6)).max())
+    aligned_ok = bool(((pk - pp).abs() <= PRIORITY_RTOL * pp.abs() + 1e-6).all())
+    emit({"phase": "train_aligned", "check": "initial priorities kernels vs plain", "episodes": M,
+          "rows": M * setup.replay.num_player, "T": setup.train.max_len, "max_rel_gap": aligned_rel,
+          "rtol": PRIORITY_RTOL, "agree": aligned_ok, "replay_holds_them": in_replay,
+          "launches": aligned_prio_counts})
+    if not aligned_ok:
+        fail(f"aligned priorities through the kernels differ from the plain versions: {aligned_rel}")
+    if not in_replay:
+        fail("the replay's weights are not the collect's priorities^alpha")
+    if aligned_prio_counts != prio_launches:
+        fail(f"aligned priorities launches {aligned_prio_counts}, expected {prio_launches}")
+    del out, episodes, batch, online_qa, greedy_a
+    torch.cuda.empty_cache()
+
+    # B1 at [80, 2048] against float64 by the float32 rule, and timed
+    T1, B1w = B1_ALIGNED
+    aworst = {"B1": 0.0, "plain": 0.0}
+    for seed in range(F64_SEEDS_WIDE):
+        g = torch.Generator().manual_seed(seed)
+        r = lambda *shape, scale=1.0: (scale * torch.randn(*shape, generator=g)).to(dev)
+        xs, h0, c0 = r(T1, B1w, H), r(L, B1w, H, scale=0.5), r(L, B1w, H, scale=0.5)
+        with torch.no_grad():
+            ref = flat3(lstm_seq_plain([{k: v.double() for k, v in p.items()} for p in lstm_params], xs.double(),
+                                       (h0.double(), c0.double())))
+            for who, ys in (("B1", flat3(lstm_seq_kernel(lstm_params, xs, (h0, c0)))),
+                            ("plain", flat3(lstm_seq_plain(lstm_params, xs, (h0, c0))))):
+                aworst[who] = max(aworst[who], max(largest_gap(y, r64) for y, r64 in zip(ys, ref)))
+            del ref
+    a_ratio = aworst["B1"] / aworst["plain"]
+    emit({"phase": "train_aligned", "check": "B1 at the aligned-priority shape", "T": T1, "B": B1w, "H": H, "L": L,
+          "seeds": F64_SEEDS_WIDE, "largest_gap_to_f64": aworst, "ratio_to_plain": a_ratio, "factor": F64_FACTOR})
+    if not a_ratio <= F64_FACTOR:
+        fail(f"B1 at [{T1}, {B1w}]: further than {F64_FACTOR}x the plain version from float64: {a_ratio}")
+    b1_errors["aligned_priority"] = aworst["B1"]
+    with torch.no_grad():
+        lib_err = float((cudnn(xs, (h0, c0))[0] - lstm_seq_plain(lstm_params, xs, (h0, c0))[0]).abs().max())
+        ms = cuda_ms(torch, lambda: lstm_seq_kernel(lstm_params, xs, (h0, c0)), iters=10, warmup=2)
+        plain_ms = cuda_ms(torch, lambda: lstm_seq_plain(lstm_params, xs, (h0, c0)), iters=5, warmup=1)
+        library_ms = cuda_ms(torch, lambda: cudnn(xs, (h0, c0)), iters=10, warmup=2)
+    b_ms, b_by = bound(lstm_flops(T1, B1w, H, L), 4.0 * lstm_words(T1, B1w, H, L))
+    timing["B1_aligned_priority"] = {"T": T1, "B": B1w, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                                     "library_max_abs_err": lib_err, "bound_ms": b_ms, "bound_by": b_by,
+                                     "launches_per_call": 2 * L}
+    emit({"phase": "train_aligned", "timing": {"B1_aligned_priority": timing["B1_aligned_priority"]},
+          "card": smi_line})
+    del xs, h0, c0
+    torch.cuda.empty_cache()
+
+    state, aligned_totals, aligned_walls = train_phase("train_aligned", setup, state, optimizer, 2, aligned_train,
+                                                       ALIGNED_BANDS)
+    _, m_k, gaps = kernels_vs_plain(setup, optimizer, state, seed=9)
+    emit({"phase": "train_aligned", "check": "sgd_update kernels vs plain", "loss": float(m_k["loss"]),
+          "grad_norm": float(m_k["grad_norm"]), "rel_gap": gaps, "rel_tol": SGD_REL_TOL})
+    bad = {k: v for k, v in gaps.items() if not v <= SGD_REL_TOL[k]}
+    if bad:
+        fail(f"aligned sgd_update through the kernels differs from the plain versions: {bad}")
+    del state
+    torch.cuda.empty_cache()
+
+    # 6i. train knobs: the bf16 flagship (continuous) with snapshot_sampling
+    # and stacked_td on, warm-started, burn-in cut to one collect chunk.
+    knobs = {"compute_dtype": "bfloat16", "snapshot_sampling": True, "stacked_td": True}
+    cfg = make_config("sad_2p", pred_weight=0.25, burn_in_frames=2048, **knobs)
+    setup = learner.make_setup(cfg)
+    state = selfplay.load_model(FLAGSHIP, learner.init_train_state(setup, setup.train.seed, dev))
+    optimizer = learner.make_optimizer(setup.train)
+    emit({"phase": "train_knobs", "config": {"preset": "sad_2p", "pred_weight": 0.25, "burn_in_frames": 2048,
+                                             **knobs, **shape}, "bands": BANDS})
+    bf16_train = dict(expect_train, b1_bf16=expect_train["b1"], b2_bwd_bf16=U * L)
+    state = collect_phase("train_knobs", setup, state, dict(expect_collect, b1_bf16=rollout))
+    state, knob_totals, knob_walls = train_phase("train_knobs", setup, state, optimizer, 2, bf16_train, BANDS)
+
+    def full_copy(st):
+        """copy_of(st) with every replay field and both generators copied."""
+        gens = []
+        for gen_ in (st.env_gen, st.sample_gen):
+            gens.append(torch.Generator(device=dev))
+            gens[-1].set_state(gen_.get_state())
+        return copy_of(st)._replace(replay=replay_mod.ReplayState(*(t.clone() for t in st.replay)),
+                                    env_gen=gens[0], sample_gen=gens[1])
+
+    # From one cloned state, a chunk of one update with the snapshot on and off
+    ones = []
+    for snap in (True, False):
+        one_setup = learner.make_setup(dataclasses.replace(cfg, num_update_per_chunk=1, snapshot_sampling=snap))
+        s1, m1 = learner.train_chunk(one_setup, learner.make_optimizer(one_setup.train), full_copy(state))
+        ones.append((learner.param_leaves(s1.params.online), s1.replay.weight, m1["loss"]))
+        del s1
+    same_chunk = {"params": all(torch.equal(a, b) for a, b in zip(ones[0][0], ones[1][0])),
+                  "replay_weights": bool(torch.equal(ones[0][1], ones[1][1])),
+                  "loss": bool(torch.equal(ones[0][2], ones[1][2]))}
+    emit({"phase": "train_knobs", "check": "one-update chunk, snapshot on and off", "same_bits": same_chunk,
+          "loss": float(ones[0][2])})
+    del ones
+    if not all(same_chunk.values()):
+        fail(f"a one-update chunk differs with snapshot_sampling on and off: {same_chunk}")
+
+    del state
+    torch.cuda.empty_cache()
+
     # 7. kernels: launches are the 3 train chunks' of phase 6 (the eval's B1
     # count is on its line), and of phase 6b for the bf16 routes
     b1, b2, b3t = timing["B1_learner"], timing["B2_learner"], timing["B3_flagship"]
@@ -1476,14 +1657,16 @@ def main():
          "step_us": timing["persistent_step_us"]["B1_f32"],
          "eval_shape": timing["B1_eval"], "eval_launches": eval_counts["b1"],
          "rollout_shape": timing["B1_rollout"], "priority_shape": timing["B1_priority"],
-         "priority_launches": prio_counts["b1"], "crossplay_launches": xp_counts["b1"]},
+         "priority_launches": prio_counts["b1"], "crossplay_launches": xp_counts["b1"],
+         "aligned_priority_shape": timing["B1_aligned_priority"],
+         "aligned_priority_launches": aligned_prio_counts["b1"], "train_aligned_launches": aligned_totals["b1"]},
         {"name": "lstm_seq_diff (B2)", "route": "cuda", "source": "hanabi_sad_tpu_torch/ops/csrc/lstm_bwd.cu",
          "replaces": "hanabi_sad_tpu/ops/experimental/pallas_lstm.py:212",
          "launches": totals["b2_bwd"], "calls": totals["b2"], "max_abs_err": b2_max_err, "ms": b2["ms"],
          "plain_ms": b2["plain_ms"], "bound_ms": b2["bound_ms"], "bound_by": b2["bound_by"],
          "library_ms": b2["library_ms"], "shape": "T=80 B=128 H=512 L=2, forward + backward",
          "tensor_cores": tensor_cores["lstm_bwd_f32"], "step_us": timing["persistent_step_us"]["B2_bwd_f32"],
-         "split_ms": timing["B2_split_ms"]["f32"]},
+         "split_ms": timing["B2_split_ms"]["f32"], "train_aligned_launches": aligned_totals["b2_bwd"]},
         {"name": "sample_batch (B3)", "route": "cuda",
          "source": "hanabi_sad_tpu_torch/ops/csrc/sample_batch.cu",
          "replaces": "hanabi_sad_tpu/ops/experimental/pallas_replay.py:68",
@@ -1492,7 +1675,8 @@ def main():
          "call_ms": b3t["call_ms"],
          "bound_ms": b3t["bound_ms"], "bound_by": b3t["bound_by"], "library_ms": None,
          "shape": "64 of 65,536 episodes x [80, 2, 110] bytes -> Batch [80, 64, 2, 838 + 21 + 15]",
-         "iql_launches": iql_totals["b3"], "iql_shape": iql_shape, "train_op_launches": op_totals["b3"]},
+         "iql_launches": iql_totals["b3"], "iql_shape": iql_shape, "train_op_launches": op_totals["b3"],
+         "train_aligned_launches": aligned_totals["b3"], "train_knobs_launches": knob_totals["b3"]},
         {"name": "lstm_seq bf16 (B1)", "route": "cuda", "source": "hanabi_sad_tpu_torch/ops/csrc/lstm_bf16.cu",
          "replaces": "hanabi_sad_tpu/ops/experimental/pallas_lstm.py:166",
          "launches": bf16_totals["b1_bf16"], "max_abs_err": max(v for k, v in bf16_errors.items() if k != "learner"),
@@ -1502,7 +1686,8 @@ def main():
          "tensor_cores": tensor_cores["lstm_gates_bf16"] and tensor_cores["lstm_recurrence_bf16"],
          "step_us": timing["persistent_step_us"]["B1_bf16"],
          "rollout_shape": timing["B1_bf16_rollout"], "rollout_3p_shape": timing["B1_bf16_rollout_3p"],
-         "priority_shape": timing["B1_bf16_priority"], "train_op_launches": op_totals["b1_bf16"]},
+         "priority_shape": timing["B1_bf16_priority"], "train_op_launches": op_totals["b1_bf16"],
+         "train_knobs_launches": knob_totals["b1_bf16"]},
         {"name": "lstm_seq_diff bf16 (B2)", "route": "cuda",
          "source": "hanabi_sad_tpu_torch/ops/csrc/lstm_bf16.cu",
          "replaces": "hanabi_sad_tpu/ops/experimental/pallas_lstm.py:212",
@@ -1512,11 +1697,13 @@ def main():
          "shape": "T=80 B=128 H=512 L=2, forward + backward",
          "tensor_cores": tensor_cores["lstm_bwd_bf16"],
          "step_us": timing["persistent_step_us"]["B2_bwd_bf16"], "split_ms": timing["B2_split_ms"]["bf16"],
-         "train_op_launches": op_totals["b2_bwd_bf16"]},
+         "train_op_launches": op_totals["b2_bwd_bf16"], "train_knobs_launches": knob_totals["b2_bwd_bf16"]},
     ], "train_chunk_wall_s": train_walls, "train_bf16_chunk_wall_s": bf16_walls,
         "train_iql_chunk_wall_s": iql_walls, "iql_launches": iql_totals, "eval_iql_3p_launches": eval3_counts,
         "train_op_chunk_wall_s": op_walls, "train_op_launches": op_totals, "priority_launches": prio_counts,
-        "crossplay_launches": xp_counts})
+        "crossplay_launches": xp_counts, "train_aligned_chunk_wall_s": aligned_walls,
+        "train_aligned_launches": aligned_totals, "aligned_priority_launches": aligned_prio_counts,
+        "train_knobs_chunk_wall_s": knob_walls, "train_knobs_launches": knob_totals})
     print(f"# total seconds: {time.time() - t_all:.1f}", flush=True)
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})

@@ -24,7 +24,7 @@ from hanabi_sad_tpu_torch.models.r2d2_net import NetConfig, R2D2NetParams
 
 @dataclasses.dataclass(frozen=True)
 class AgentConfig:
-    """The JAX AgentConfig without `stacked_td` (not ported)."""
+    """The JAX AgentConfig, field for field (`stacked_td`: see `td_error`)."""
 
     net: NetConfig
     vdn: bool = True
@@ -32,6 +32,7 @@ class AgentConfig:
     gamma: float = 0.999
     eta: float = 0.9
     uniform_priority: bool = False
+    stacked_td: bool = False
 
 
 class AgentParams(NamedTuple):
@@ -208,7 +209,17 @@ def td_error(params: AgentParams, cfg: AgentConfig, batch: Batch) -> Tuple[torch
     Returns (err [T, B], lstm_o [T, B, Pi, D]).
 
     The online forward is differentiable (B2 on the card when the online
-    params require grad); the target forward runs without grad (B1)."""
+    params require grad); the target forward runs without grad (B1, never
+    B2's saving forward).
+
+    cfg.stacked_td changes nothing here. The JAX package's stacked branch
+    runs both nets' full-q forwards with zero actions as one scan over the
+    params stacked [2, ...], then reads the online Q at the taken action,
+    the greedy action as the argmax of (1 + q - q.min()) * legal, and the
+    target Q at it: the numbers of the two forwards below, which read the
+    same q the same way. The port keeps the two calls, as there is no B1/B2
+    launch over two weight sets, and the JAX package measured its stacked
+    scan slower at production shapes (its `train/config.py`, `stacked_td`)."""
     T, B, Pi = batch.priv_s.shape[:3]
     flat = lambda x: x.reshape((T, B * Pi) + tuple(x.shape[3:]))
     priv_s = flat(batch.priv_s)
@@ -310,4 +321,16 @@ def compute_priority_from_rollout(
     target = batch.reward + batch.bootstrap * (cfg.gamma ** n) * target_qa
     mask = (torch.arange(T, device=target.device)[:, None] < batch.seq_len[None, :]).to(target.dtype)
     err = (target - online_qa) * mask
+    return aggregate_priority(err.abs(), batch.seq_len, cfg.eta)
+
+
+@torch.no_grad()
+def compute_priority(params: AgentParams, cfg: AgentConfig, batch: Batch) -> torch.Tensor:
+    """Initial priorities [B] of freshly collected episodes from both nets'
+    zero-h0 sequence forwards (B1 on the card): |n-step TD error| per step,
+    aggregated. For episodes aligned to t = 0 this is
+    compute_priority_from_rollout's quantity, recomputed."""
+    if cfg.uniform_priority:
+        return torch.ones_like(batch.seq_len, dtype=torch.float32)
+    err, _ = td_error(params, cfg, batch)
     return aggregate_priority(err.abs(), batch.seq_len, cfg.eta)

@@ -10,10 +10,11 @@ Semantics are the JAX package's:
   * priorities are raised to alpha on add and update;
   * sampling is stratified proportional, one uniform draw per equal-weight
     segment;
-  * importance weights (size * p / sum)^-beta, normalised by the batch max;
+  * importance weights (size * p / sum)^-beta, normalised by each batch's
+    max;
   * capacity eviction overwrites the oldest items (ring overwrite).
 
-Unlike the JAX package, whose arrays are immutable, `add_packed` and
+Unlike the JAX package, whose arrays are immutable, `add`, `add_packed` and
 `update_priority` write the ring's tensors in place and return a
 ReplayState that shares them; the state passed in is changed too.
 Observations are stored bitpacked (`bitpack.py`).
@@ -29,7 +30,7 @@ import torch
 from hanabi_sad_tpu_torch.agent.r2d2_agent import Batch
 from hanabi_sad_tpu_torch.ops import gather_unpack as gather_unpack_op
 from hanabi_sad_tpu_torch.ops import sample_batch as sample_batch_op
-from hanabi_sad_tpu_torch.replay.bitpack import packed_size
+from hanabi_sad_tpu_torch.replay.bitpack import pack_bits, packed_size
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,6 +79,25 @@ def init_replay(cfg: ReplayConfig, device) -> ReplayState:
         size=scalar(),
         num_add=scalar(),
     )
+
+
+class EpisodeBatch(NamedTuple):
+    """M new episodes to ingest (already n-step processed and padded)."""
+
+    priv_s: torch.Tensor  # [M, T, Pi, F]
+    legal_move: torch.Tensor  # [M, T, Pi, A]
+    own_hand: torch.Tensor  # [M, T, Pi, 3*hand]
+    action: torch.Tensor  # [M, T, Pi] int64
+    reward: torch.Tensor  # [M, T]
+    bootstrap: torch.Tensor  # [M, T]
+    seq_len: torch.Tensor  # [M]
+
+
+def add(state: ReplayState, cfg: ReplayConfig, ep: EpisodeBatch, priority: torch.Tensor) -> ReplayState:
+    """Ring-write M unpacked episodes with priority^alpha weights, in place:
+    their bits packed, then `add_packed`."""
+    bits = torch.cat([ep.priv_s, ep.legal_move, ep.own_hand], dim=-1)
+    return add_packed(state, cfg, pack_bits(bits), ep.action, ep.reward, ep.bootstrap, ep.seq_len, priority)
 
 
 def add_packed(
@@ -155,11 +175,16 @@ def sample_indices(
     generator: Optional[torch.Generator] = None,
     uniforms: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Stratified proportional draw of `batchsize` indices + IS weights from
-    the current priority state. The uniforms in [0, 1) come from `uniforms`
-    ([batchsize], injected by tests) or else from `generator`.
+    """Stratified proportional draw of indices + IS weights from the current
+    priority state, for one batch or for U at once.
 
-    Returns (idx [B] int64, is_weight [B] f32)."""
+    The uniforms in [0, 1) are `uniforms`, [B] or [U, B], or else one
+    `rand((B,))` call of `generator`. All U batches share one prefix sum,
+    the JAX package's priority-snapshot semantics; each row is its own
+    stratified draw, and its IS weights are normalised by its own max.
+
+    Returns (idx, is_weight), [B] int64 and f32, or [U, B] for [U, B]
+    uniforms."""
     device = state.weight.device
     valid = torch.arange(cfg.capacity, device=device) < state.size
     w = torch.where(valid, state.weight, torch.zeros_like(state.weight))
@@ -168,12 +193,16 @@ def sample_indices(
     seg = total / batchsize
     if uniforms is None:
         uniforms = torch.rand((batchsize,), generator=generator, device=device)
-    targets = (torch.arange(batchsize, device=device) + uniforms.to(device)) * seg
+    single = uniforms.dim() == 1
+    u = uniforms.to(device).reshape(-1, batchsize)  # [U, B]
+    targets = (torch.arange(batchsize, device=device) + u) * seg
     targets = torch.minimum(targets, total * (1 - 1e-6))
     idx = torch.searchsorted(cum, targets, right=True).clamp(max=cfg.capacity - 1)
     p = w[idx] / torch.clamp(total, min=1e-30)
     is_w = (state.size.float() * p).pow(-cfg.beta)
-    is_w = is_w / torch.clamp(is_w.max(), min=1e-30)
+    is_w = is_w / torch.clamp(is_w.max(dim=-1, keepdim=True).values, min=1e-30)
+    if single:
+        return idx[0], is_w[0]
     return idx, is_w
 
 
@@ -208,6 +237,12 @@ def _sample_batch(cfg: ReplayConfig, packed, action, reward, bootstrap, seq_len,
     )
 
 
+def batch_at(state: ReplayState, cfg: ReplayConfig, idx: torch.Tensor) -> Batch:
+    """The learner Batch ([T, B, ...]) of the ring's episodes at idx: B3
+    gathers them from the ring and writes the Batch in one launch."""
+    return _sample_batch(cfg, state.packed, state.action, state.reward, state.bootstrap, state.seq_len, idx)
+
+
 def rows_to_batch(cfg: ReplayConfig, rows: ReplayRows) -> Batch:
     """Unpack one batch of gathered rows ([B, T, ...]) into the time-major
     learner Batch ([T, B, ...], every field contiguous): B3 over the rows
@@ -230,8 +265,7 @@ def sample(
     Returns (Batch [T, B, Pi, ...], is_weight [B], indices [B]). The caller
     feeds the indices back through update_priority after the gradient step."""
     idx, is_w = sample_indices(state, cfg, batchsize, generator=generator, uniforms=uniforms)
-    batch = _sample_batch(cfg, state.packed, state.action, state.reward, state.bootstrap, state.seq_len, idx)
-    return batch, is_w, idx
+    return batch_at(state, cfg, idx), is_w, idx
 
 
 def update_priority(

@@ -2,13 +2,12 @@
 
 `TrainConfig`, `derived`, `generate_explore_eps`, `PRESETS` and `make_config`
 are the JAX package's, field for field, so a flag line or a saved config
-means the same in both packages. The port trains what its modules cover so
-far: VDN or IQL at 2-5 players in the continuous rollout, with Other-Play
-(`shuffle_color`) and shuffled observations, initial priorities fused into
-the rollout, from a separate target forward or online-online, in float32 or
-bfloat16 compute, with `profile_chunks`. A field that selects anything else
-(the aligned rollout, `stacked_td`, `snapshot_sampling`, `multihost`) raises
-NotImplementedError.
+means the same in both packages. The port trains every single-card mode of
+the JAX trainer: VDN or IQL at 2-5 players in the continuous or the aligned
+rollout, with Other-Play (`shuffle_color`) and shuffled observations,
+initial priorities fused into the rollout, from a separate target forward or
+online-online, `stacked_td` and `snapshot_sampling`, in float32 or bfloat16
+compute, with `profile_chunks`. `multihost` raises NotImplementedError.
 
 The loop alternates a rollout chunk (num_envs envs, max_len steps) with
 `num_update_per_chunk` gradient updates. The replay ratio, train frames per
@@ -74,7 +73,8 @@ class TrainConfig:
     num_envs: int = 1024  # parallel games per rollout chunk
     num_update_per_chunk: int = 16  # gradient steps between chunks
     # "continuous": envs auto-reset mid-chunk and episodes are re-assembled
-    # from the step stream. "aligned" (all envs reset per chunk) is not ported.
+    # from the step stream. "aligned": all envs reset per chunk and play one
+    # padded episode (the JAX package's semantics reference).
     rollout_mode: str = "continuous"
     slots_per_env: int = 4  # continuous mode: completed-episode slots/env/chunk
     # Initial priorities from the online-target TD error (the reference's
@@ -83,9 +83,11 @@ class TrainConfig:
     # ... computed from a target-net step fused into the rollout
     # (r2d2_agent.act_with_target) rather than a separate sequence forward.
     exact_priority_in_rollout: bool = True
-    # One stacked scan for the learner's online and target forwards.
+    # The learner's online and target forwards as full-q forwards read at
+    # the taken and the greedy action (one stacked scan in the JAX package,
+    # two calls in the port; the same numbers).
     stacked_td: bool = False
-    # Draw a chunk's batches from the chunk-start priority snapshot.
+    # Draw a chunk's batches from the priorities as the collect left them.
     snapshot_sampling: bool = False
     # Loop unroll factors of the JAX package's compiled scans; they change no
     # number, and the port's eager loops ignore them.
@@ -102,15 +104,8 @@ class TrainConfig:
             raise ValueError(f"method must be 'vdn' or 'iql', got {self.method!r}")
         if self.rollout_mode not in ("aligned", "continuous"):
             raise ValueError(f"rollout_mode must be 'aligned' or 'continuous', got {self.rollout_mode!r}")
-        not_ported = {
-            "rollout_mode='aligned'": self.rollout_mode == "aligned",
-            "stacked_td": self.stacked_td,
-            "snapshot_sampling": self.snapshot_sampling,
-            "multihost": self.multihost,
-        }
-        for name, asked in not_ported.items():
-            if asked:
-                raise NotImplementedError(f"{name} is not ported yet")
+        if self.multihost:
+            raise NotImplementedError("multihost is not ported yet")
         if self.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"compute_dtype must be 'float32' or 'bfloat16', got {self.compute_dtype!r}")
 

@@ -1,19 +1,25 @@
-"""The learner (counterpart of `hanabi_sad_tpu/train/learner.py`, continuous
-rollout mode).
+"""The learner (counterpart of `hanabi_sad_tpu/train/learner.py`).
 
 One `train_chunk` call:
-  1. rolls one continuous chunk of `max_len` steps of epsilon-greedy
-     self-play with the current online params, assembles the finished
-     episodes (for IQL, one item per player), computes their initial
-     priorities and ring-writes them into the replay. The priorities are the
-     exact online-target ones, from the rollout's own target Q stream
-     (`exact_priority_in_rollout`) or from a target-net sequence forward
-     over the slots (kernel B1), or, with `continuous_exact_priority` off,
-     the online-online approximation from the rollout's online Q;
+  1. collects one chunk into the replay, in the configured rollout mode:
+     * continuous: `max_len` steps of epsilon-greedy self-play from the
+       persistent actor state, the finished episodes assembled (for IQL,
+       one item per player), their initial priorities computed and
+       ring-written into the replay. The priorities are the exact
+       online-target ones, from the rollout's own target Q stream
+       (`exact_priority_in_rollout`) or from a target-net sequence forward
+       over the slots (kernel B1), or, with `continuous_exact_priority` off,
+       the online-online approximation from the rollout's online Q;
+     * aligned: every env resets and plays one padded episode of `max_len`
+       steps with the online net (`collect_chunk`); the initial priorities
+       take the rollout's online Q and one target-net sequence forward over
+       the episodes (B1);
   2. runs `num_update_per_chunk` gradient updates, each sampling the replay
      (kernel B3), applying the IS-weighted Huber TD + aux loss (the online
      forward through kernel B2, the target forward through B1), clipping the
-     global grad norm, stepping Adam and writing the new priorities back;
+     global grad norm, stepping Adam and writing the new priorities back.
+     With `snapshot_sampling` all of the chunk's index rows and IS weights
+     are drawn from the priorities as they stand before the first update;
   3. syncs the target net whenever the global update counter is a multiple
      of `num_update_between_sync`.
 
@@ -37,7 +43,7 @@ from hanabi_sad_tpu_torch.game.env import EnvConfig
 from hanabi_sad_tpu_torch.models.r2d2_net import NetConfig, R2D2NetParams
 from hanabi_sad_tpu_torch.replay import prioritized as replay_mod
 from hanabi_sad_tpu_torch.replay.prioritized import ReplayConfig, ReplayState
-from hanabi_sad_tpu_torch.rollout import continuous
+from hanabi_sad_tpu_torch.rollout import continuous, runner
 from hanabi_sad_tpu_torch.train.config import TrainConfig, generate_explore_eps
 from hanabi_sad_tpu_torch.train.optim import AdamState, ClipAdam, linear_schedule
 
@@ -94,7 +100,7 @@ def make_setup(cfg: TrainConfig) -> Setup:
         compute_dtype=cfg.compute_dtype,
     )
     agent = AgentConfig(
-        net=net, vdn=cfg.vdn, multi_step=cfg.multi_step, gamma=cfg.gamma, eta=cfg.eta
+        net=net, vdn=cfg.vdn, multi_step=cfg.multi_step, gamma=cfg.gamma, eta=cfg.eta, stacked_td=cfg.stacked_td
     )
     replay = ReplayConfig(
         capacity=cfg.replay_buffer_size,
@@ -144,13 +150,13 @@ class TrainState(NamedTuple):
     num_update: int  # global gradient-step counter
     env_gen: torch.Generator  # decks, eps and explore draws of the rollout
     sample_gen: torch.Generator  # replay sampling
-    actor: continuous.ActorState
+    actor: Optional[continuous.ActorState] = None  # continuous mode only
 
 
 def init_train_state(setup: Setup, seed: int, device=None) -> TrainState:
     """Fresh params (drawn on a CPU generator seeded with `seed`, so the same
-    on every device), an empty replay and a freshly reset actor on `device`
-    (default `cuda`)."""
+    on every device), an empty replay and, in continuous mode, a freshly
+    reset actor, on `device` (default `cuda`)."""
     device = resolve_device(device)
     params = r2d2_agent.init_agent(
         setup.agent, generator=torch.Generator().manual_seed(seed), device=device
@@ -158,10 +164,12 @@ def init_train_state(setup: Setup, seed: int, device=None) -> TrainState:
     env_gen = torch.Generator(device=device).manual_seed(seed + 1)
     sample_gen = torch.Generator(device=device).manual_seed(seed + 2)
     cfg = setup.train
-    actor = continuous.init_actor_state(
-        setup.agent, setup.env, setup.replay, cfg.num_envs, generator=env_gen,
-        with_target_qa=cfg.continuous_exact_priority and cfg.exact_priority_in_rollout, device=device,
-    )
+    actor = None
+    if cfg.rollout_mode == "continuous":
+        actor = continuous.init_actor_state(
+            setup.agent, setup.env, setup.replay, cfg.num_envs, generator=env_gen,
+            with_target_qa=cfg.continuous_exact_priority and cfg.exact_priority_in_rollout, device=device,
+        )
     return TrainState(
         params=params,
         opt_state=make_optimizer(setup.train).init(param_leaves(params.online)),
@@ -177,12 +185,13 @@ def sgd_update(
     setup: Setup,
     optimizer: ClipAdam,
     state: TrainState,
-    presampled: Optional[Tuple[replay_mod.ReplayRows, torch.Tensor, torch.Tensor]] = None,
+    presampled: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One prioritized-replay gradient step.
 
-    `presampled` is None (sample here, from the live priority state) or a
-    (ReplayRows, is_weight, idx) triple drawn by the caller."""
+    `presampled` is None (sample here, from the live priority state) or an
+    (is_weight, idx) pair drawn by the caller; B3 reads the ring's episodes
+    at idx either way."""
     cfg = setup.train
     params = state.params
     if state.num_update % cfg.num_update_between_sync == 0:
@@ -193,8 +202,8 @@ def sgd_update(
             state.replay, setup.replay, cfg.batchsize, generator=state.sample_gen
         )
     else:
-        rows, is_weight, idx = presampled
-        batch = replay_mod.rows_to_batch(setup.replay, rows)
+        is_weight, idx = presampled
+        batch = replay_mod.batch_at(state.replay, setup.replay, idx)
 
     leaves = param_leaves(params.online)
     for t in leaves:
@@ -215,10 +224,42 @@ def sgd_update(
     return new_state, metrics
 
 
-def collect_into_replay(setup: Setup, state: TrainState) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-    """One continuous collection chunk; returns the state with the finished
-    episodes in the replay, plus chunk stats (0-d device tensors)."""
+def collect_chunk(
+    setup: Setup, params: AgentParams, generator: torch.Generator
+) -> Tuple[replay_mod.EpisodeBatch, torch.Tensor, Dict[str, torch.Tensor]]:
+    """One aligned chunk on the generator's device: every env resets and
+    plays one padded episode, whose replay items and initial priorities it
+    returns, with chunk stats (0-d device tensors). The explore ratio counts
+    live frames only."""
     cfg = setup.train
+    out = runner.run_episode_chunk(
+        params, setup.agent, setup.env, cfg.num_envs, cfg.max_len, generator=generator, device=generator.device
+    )
+    episodes = runner.chunk_to_episodes(out, setup.agent)
+    batch = runner.episodes_to_batch(episodes)
+    online_qa, greedy_a = runner.rollout_priority_inputs(out, setup.agent)
+    priority = r2d2_agent.compute_priority_from_rollout(params, setup.agent, batch, online_qa, greedy_a)
+    prev_done = torch.cumsum(out.done.long(), 0) - out.done.long() > 0  # [T, N]
+    live = (~prev_done)[..., None]  # [T, N, 1], over the players
+    deviated = (out.action != out.greedy_a) & live
+    stats = {
+        "chunk_score": out.last_score.float().mean(),
+        "chunk_len": episodes.seq_len.mean(),
+        "chunk_frames": episodes.seq_len.sum(),
+        "explore_ratio": deviated.sum() / torch.clamp(live.sum() * out.action.shape[-1], min=1),
+    }
+    return episodes, priority, stats
+
+
+def collect_into_replay(setup: Setup, state: TrainState) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    """One collection chunk in the configured rollout mode; returns the state
+    with the new episodes in the replay, plus chunk stats (0-d device
+    tensors)."""
+    cfg = setup.train
+    if cfg.rollout_mode == "aligned":
+        episodes, priority, chunk_stats = collect_chunk(setup, state.params, state.env_gen)
+        return state._replace(replay=replay_mod.add(state.replay, setup.replay, episodes, priority)), chunk_stats
+
     actor, stream = continuous.run_continuous_chunk(
         state.params, setup.agent, setup.env, state.actor, cfg.max_len, generator=state.env_gen
     )
@@ -250,15 +291,46 @@ def collect_into_replay(setup: Setup, state: TrainState) -> Tuple[TrainState, Di
     return state._replace(replay=replay, actor=actor), chunk_stats
 
 
-def train_chunk(setup: Setup, optimizer: ClipAdam, state: TrainState):
-    """Collect one chunk, then num_update_per_chunk gradient updates. Returns
-    (state, metrics: the updates' means and the chunk stats)."""
-    state, chunk_stats = collect_into_replay(setup, state)
+def train_updates(setup: Setup, optimizer: ClipAdam, state: TrainState):
+    """num_update_per_chunk gradient updates. Returns (state, the updates'
+    mean metrics).
+
+    With snapshot_sampling every update's index row and IS weights are drawn
+    before the first update, from the priorities as they stand (U successive
+    draws of `sample_gen`, the sequential path's own), so no batch of the
+    chunk sees the chunk's priority feedback, which still lands in the
+    replay every update. The replay is written in place, so the draw has to
+    come first: one taken inside the loop would read the live priorities.
+    The ring's packed fields do not change during the updates, only its
+    weights, so each update's B3 launch reads the ring at its row of indices
+    (`batch_at`), as a sequential update does; at one update a chunk the two
+    paths give the same bits."""
+    cfg = setup.train
+    U = cfg.num_update_per_chunk
+    if cfg.snapshot_sampling:
+        # U successive one-batch draws, as the sequential path makes them (a
+        # single rand((U, B)) is another stream on the card)
+        device = state.replay.weight.device
+        uniforms = torch.stack(
+            [torch.rand((cfg.batchsize,), generator=state.sample_gen, device=device) for _ in range(U)]
+        )
+        idx, is_w = replay_mod.sample_indices(state.replay, setup.replay, cfg.batchsize, uniforms=uniforms)
+        presampled = [(is_w[u], idx[u]) for u in range(U)]
+    else:
+        presampled = [None] * U
     per_update = []
-    for _ in range(setup.train.num_update_per_chunk):
-        state, metrics = sgd_update(setup, optimizer, state)
+    for drawn in presampled:
+        state, metrics = sgd_update(setup, optimizer, state, presampled=drawn)
         per_update.append(metrics)
-    out = {k: torch.stack([m[k] for m in per_update]).mean() for k in per_update[0]}
+    return state, {k: torch.stack([m[k] for m in per_update]).mean() for k in per_update[0]}
+
+
+def train_chunk(setup: Setup, optimizer: ClipAdam, state: TrainState):
+    """Collect one chunk, then num_update_per_chunk gradient updates
+    (`train_updates`). Returns (state, metrics: the updates' means and the
+    chunk stats)."""
+    state, chunk_stats = collect_into_replay(setup, state)
+    state, out = train_updates(setup, optimizer, state)
     out.update(chunk_stats)
     return state, out
 

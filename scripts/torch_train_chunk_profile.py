@@ -40,15 +40,9 @@ def timed(fn):
 
 def phases(setup, optimizer, state):
     """One train chunk as learner.train_chunk runs it, timed in two phases:
-    collect_into_replay, then the updates."""
+    collect_into_replay, then train_updates."""
     (state, _), t_collect = timed(lambda: learner.collect_into_replay(setup, state))
-
-    def updates(s):
-        for _ in range(setup.train.num_update_per_chunk):
-            s, _ = learner.sgd_update(setup, optimizer, s)
-        return s
-
-    state, t_upd = timed(lambda: updates(state))
+    (state, _), t_upd = timed(lambda: learner.train_updates(setup, optimizer, state))
     return state, {"collect_s": t_collect, "updates_s": t_upd, "chunk_s": t_collect + t_upd}
 
 

@@ -76,7 +76,6 @@ def one_process():
     optimizer = learner.make_optimizer(setup.train)
     idx, is_w = replay_mod.sample_indices(state.replay, setup.replay, setup.train.batchsize,
                                           generator=torch.Generator(device=dev).manual_seed(4))
-    rows = replay_mod.gather_rows(state.replay, idx)
 
     def update():
         opt = state.opt_state
@@ -85,7 +84,7 @@ def one_process():
             opt_state=opt._replace(mu=[m.clone() for m in opt.mu], nu=[v.clone() for v in opt.nu]),
             replay=state.replay._replace(weight=state.replay.weight.clone()),
         )
-        new, metrics = learner.sgd_update(setup, optimizer, copy, presampled=(rows, is_w, idx))
+        new, metrics = learner.sgd_update(setup, optimizer, copy, presampled=(is_w, idx))
         torch.cuda.synchronize()
         return learner.param_leaves(new.params.online), {k: float(metrics[k]) for k in ("loss", "grad_norm")}
 

@@ -23,7 +23,6 @@ from hanabi_sad_tpu.train import config as jconfig
 from hanabi_sad_tpu.train import learner as jlearner
 from hanabi_sad_tpu_torch.models import r2d2_net as tnet
 from hanabi_sad_tpu_torch.ops.lstm_seq import LstmSeqDiff, lstm_seq_diff, lstm_seq_plain
-from hanabi_sad_tpu_torch.replay import prioritized as trep
 from hanabi_sad_tpu_torch.train import checkpoint as ckpt
 from hanabi_sad_tpu_torch.train import config as tconfig
 from hanabi_sad_tpu_torch.train import learner as tlearner
@@ -250,8 +249,7 @@ def test_bf16_sgd_update_matches_jax():
         jstate, (jrep.gather_rows(jstate.replay, jnp.asarray(idx)), jnp.asarray(is_w), jnp.asarray(idx)))
     tstate2, tm = tlearner.sgd_update(
         tsetup, tlearner.make_optimizer(tsetup.train), tstate,
-        presampled=(trep.gather_rows(tstate.replay, torch.from_numpy(idx).long()), torch.from_numpy(is_w),
-                    torch.from_numpy(idx).long()))
+        presampled=(torch.from_numpy(is_w), torch.from_numpy(idx).long()))
     for k in ("loss", "grad_norm", "rl_loss", "aux1"):
         np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=0.02, err_msg=k)
     np.testing.assert_allclose(tstate2.replay.weight.numpy(), np.asarray(jstate2.replay.weight), atol=0.02, rtol=0)

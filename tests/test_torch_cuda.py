@@ -389,7 +389,6 @@ def test_sgd_update_through_kernels_equals_plain_on_card(card, monkeypatch):
     state, _ = learner.collect_only(setup, state)
     idx, is_w = trep.sample_indices(state.replay, setup.replay, setup.train.batchsize,
                                     generator=torch.Generator(device=card).manual_seed(0))
-    rows = trep.gather_rows(state.replay, idx)
     optimizer = learner.make_optimizer(setup.train)
 
     def fresh_copy():
@@ -401,12 +400,12 @@ def test_sgd_update_through_kernels_equals_plain_on_card(card, monkeypatch):
         )
 
     counts = (lstm_seq_kernel.launches, LstmSeqDiff.calls, sb.sample_batch_kernel.launches)
-    s_k, m_k = learner.sgd_update(setup, optimizer, fresh_copy(), presampled=(rows, is_w, idx))
+    s_k, m_k = learner.sgd_update(setup, optimizer, fresh_copy(), presampled=(is_w, idx))
     assert lstm_seq_kernel.launches > counts[0] and LstmSeqDiff.calls == counts[1] + 1
     assert sb.sample_batch_kernel.launches == counts[2] + 1
     monkeypatch.setattr(tlstm, "lstm_seq", lstm_seq_plain)
     monkeypatch.setattr(sb, "sample_batch", sb.sample_batch_plain)
-    s_p, m_p = learner.sgd_update(setup, optimizer, fresh_copy(), presampled=(rows, is_w, idx))
+    s_p, m_p = learner.sgd_update(setup, optimizer, fresh_copy(), presampled=(is_w, idx))
     for k in ("loss", "grad_norm", "rl_loss", "aux1"):
         assert abs(float(m_k[k]) - float(m_p[k])) <= 1e-4 * abs(float(m_p[k])), k
     assert float((s_k.replay.weight - s_p.replay.weight).abs().max()) <= 1e-4
@@ -639,7 +638,6 @@ def kernels_vs_plain_update(setup, state, card, monkeypatch):
     from copies of `state` on one presampled batch; returns both metrics."""
     idx, is_w = trep.sample_indices(state.replay, setup.replay, setup.train.batchsize,
                                     generator=torch.Generator(device=card).manual_seed(0))
-    rows = trep.gather_rows(state.replay, idx)
     optimizer = learner.make_optimizer(setup.train)
 
     def fresh_copy():
@@ -650,11 +648,11 @@ def kernels_vs_plain_update(setup, state, card, monkeypatch):
             replay=state.replay._replace(weight=state.replay.weight.clone()),
         )
 
-    _, m_k = learner.sgd_update(setup, optimizer, fresh_copy(), presampled=(rows, is_w, idx))
+    _, m_k = learner.sgd_update(setup, optimizer, fresh_copy(), presampled=(is_w, idx))
     with monkeypatch.context() as m:
         m.setattr(tlstm, "lstm_seq", lstm_seq_plain)
         m.setattr(sb, "sample_batch", sb.sample_batch_plain)
-        _, m_p = learner.sgd_update(setup, optimizer, fresh_copy(), presampled=(rows, is_w, idx))
+        _, m_p = learner.sgd_update(setup, optimizer, fresh_copy(), presampled=(is_w, idx))
     return m_k, m_p
 
 
@@ -707,14 +705,12 @@ def test_iql_3p_eval_on_card_matches_cpu(card):
     assert abs(card_mean - cpu_mean) <= 0.5
 
 
-@pytest.mark.cuda
-def test_b1_at_the_exact_priority_shape_against_float64_on_card(card):
-    """B1 at [80, 8192, 512] (the target forward of exact_episode_priorities
-    over 4096 slots x 2 seats), the flagship's LSTM weights, 2 inputs: the
+def b1_against_float64(card, B):
+    """B1 at [80, B, 512] on the flagship's LSTM weights, 2 inputs: the
     largest distance of its outputs to float64 at most twice the plain
     float32 version's, and 2 * L launches a call."""
     params = flagship_lstm(card)
-    L, (T, B, H) = len(params), (80, 8192, 512)
+    L, (T, H) = len(params), (80, 512)
     worst = {"B1": 0.0, "plain": 0.0}
     for seed in range(2):
         g = torch.Generator().manual_seed(seed)
@@ -732,6 +728,49 @@ def test_b1_at_the_exact_priority_shape_against_float64_on_card(card):
             worst[who] = max(worst[who], gap)
         del b1, plain, ref
     assert worst["B1"] <= 2.0 * worst["plain"], worst
+
+
+@pytest.mark.cuda
+def test_b1_at_the_exact_priority_shape_against_float64_on_card(card):
+    """B1 at [80, 8192, 512], the target forward of exact_episode_priorities
+    over 4096 slots x 2 seats, by the float64 rule."""
+    b1_against_float64(card, 8192)
+
+
+@pytest.mark.cuda
+def test_b1_at_the_aligned_priority_shape_against_float64_on_card(card):
+    """B1 at [80, 2048, 512], the target forward of the aligned initial
+    priorities over 1024 episodes x 2 seats, by the float64 rule."""
+    b1_against_float64(card, 2048)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["vdn", "iql"])
+def test_aligned_collect_through_the_kernels_matches_plain_on_card(card, method, monkeypatch):
+    """One aligned collect on the card through B1 (T one-step launches of
+    the online net, then the target's sequence forward) and, from the same
+    generator state, through the plain LSTM: at least 90% of the items take
+    the same actions (a float32 near tie may break the other way), and
+    those have equal records and priorities within rtol 1e-4."""
+    cfg = make_config("sad_2p", method=method, rollout_mode="aligned", num_envs=64, max_len=24, rnn_hid_dim=64,
+                      replay_buffer_size=512)
+    setup = learner.make_setup(cfg)
+    state = learner.init_train_state(setup, 2, card)
+    assert state.actor is None
+    L = setup.agent.net.num_lstm_layer
+    start = state.env_gen.get_state()
+    before = lstm_seq_kernel.launches
+    ep_k, prio_k, _ = learner.collect_chunk(setup, state.params, state.env_gen)
+    assert lstm_seq_kernel.launches == before + cfg.max_len * L + 2 * L
+    state.env_gen.set_state(start)
+    with monkeypatch.context() as m:
+        m.setattr(tlstm, "lstm_seq", lstm_seq_plain)
+        ep_p, prio_p, _ = learner.collect_chunk(setup, state.params, state.env_gen)
+    same = (ep_k.action == ep_p.action).flatten(1).all(1)
+    assert float(same.float().mean()) >= 0.9
+    for f in ("priv_s", "legal_move", "own_hand", "reward", "bootstrap", "seq_len"):
+        assert torch.equal(getattr(ep_k, f)[same], getattr(ep_p, f)[same]), f
+    np.testing.assert_allclose(prio_k[same].cpu().numpy(), prio_p[same].cpu().numpy(), rtol=1e-4, atol=1e-6)
 
 
 @pytest.mark.cuda

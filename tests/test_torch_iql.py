@@ -21,7 +21,6 @@ from hanabi_sad_tpu.replay import prioritized as jrep
 from hanabi_sad_tpu.rollout import continuous as jcont
 from hanabi_sad_tpu.train import config as jconfig
 from hanabi_sad_tpu.train import learner as jlearner
-from hanabi_sad_tpu_torch.replay import prioritized as trep
 from hanabi_sad_tpu_torch.rollout import continuous as tcont
 from hanabi_sad_tpu_torch.train import config as tconfig
 from hanabi_sad_tpu_torch.train import learner as tlearner
@@ -80,8 +79,7 @@ def test_one_iql_sgd_update_with_a_presampled_batch_matches_jax(players):
         jstate, (jrep.gather_rows(jstate.replay, jnp.asarray(idx)), jnp.asarray(is_w), jnp.asarray(idx)))
     tstate2, tm = tlearner.sgd_update(
         tsetup, tlearner.make_optimizer(tsetup.train), tstate,
-        presampled=(trep.gather_rows(tstate.replay, torch.from_numpy(idx).long()), torch.from_numpy(is_w),
-                    torch.from_numpy(idx).long()))
+        presampled=(torch.from_numpy(is_w), torch.from_numpy(idx).long()))
     assert tm.keys() == jm.keys() == {"loss", "grad_norm", "rl_loss"}
     for k in jm:
         np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-5, err_msg=k)

@@ -44,9 +44,7 @@ def test_config_presets_and_eps_menu_match_jax():
         assert tconfig.generate_explore_eps(*args) == jconfig.generate_explore_eps(*args)
 
 
-@pytest.mark.parametrize("field,value", [
-    ("rollout_mode", "aligned"), ("stacked_td", True), ("snapshot_sampling", True), ("multihost", True),
-])
+@pytest.mark.parametrize("field,value", [("multihost", True)])
 def test_features_not_ported_raise(field, value):
     with pytest.raises(NotImplementedError):
         tconfig.make_config("sad_2p", **{field: value})
@@ -56,17 +54,21 @@ def test_features_not_ported_raise(field, value):
     dict(compute_dtype="bfloat16"), dict(method="iql"), dict(method="iql", num_player=5),
     dict(profile_chunks=3), dict(method="iql", num_player=3, compute_dtype="bfloat16", profile_chunks=1),
     dict(shuffle_color=True), dict(shuffle_obs=True), dict(exact_priority_in_rollout=False),
-    dict(continuous_exact_priority=False),
+    dict(continuous_exact_priority=False), dict(rollout_mode="aligned"), dict(stacked_td=True),
+    dict(snapshot_sampling=True),
 ])
 def test_ported_features_construct_as_in_jax(overrides):
     """bfloat16 compute, IQL at 2-5 players, profile_chunks, Other-Play,
-    shuffled observations and the two priority knobs give the JAX package's
-    config and derived setup; IQL divides nothing by num_player."""
+    shuffled observations, the two priority knobs, the aligned rollout,
+    stacked_td and snapshot_sampling give the JAX package's config and
+    derived setup; IQL divides nothing by num_player."""
     t, j = tconfig.make_config("sad_2p", **overrides), jconfig.make_config("sad_2p", **overrides)
     assert dataclasses.asdict(t) == dataclasses.asdict(j)
     assert dataclasses.asdict(t.derived()) == dataclasses.asdict(j.derived())
     if t.method == "iql":
         assert t.derived() == t
+    ts, js = tlearner.make_setup(t), jlearner.make_setup(j)
+    assert ts.agent.stacked_td == js.agent.stacked_td == t.stacked_td
 
 
 def test_parse_overrides_reads_each_field_as_its_type_in_both_packages():
@@ -98,8 +100,8 @@ def test_make_setup_sad_2p_matches_jax():
     for te, je in ((t.env, j.env), (t.eval_env, j.eval_env)):
         assert (te.eps_list, te.max_len, te.sad, te.feature_size) == (je.eps_list, je.max_len, je.sad, je.feature_size)
     for ta, ja in ((t.agent, j.agent), (t.eval_agent, j.eval_agent)):
-        assert (ta.vdn, ta.multi_step, ta.gamma, ta.eta, ta.uniform_priority) == (
-            ja.vdn, ja.multi_step, ja.gamma, ja.eta, ja.uniform_priority)
+        assert (ta.vdn, ta.multi_step, ta.gamma, ta.eta, ta.uniform_priority, ta.stacked_td) == (
+            ja.vdn, ja.multi_step, ja.gamma, ja.eta, ja.uniform_priority, ja.stacked_td)
         tn, jn = dataclasses.asdict(ta.net), dataclasses.asdict(ja.net)
         jn.pop("seq_unroll")
         assert tn == jn
@@ -160,13 +162,12 @@ def test_one_sgd_update_with_a_presampled_batch_matches_jax():
     idx = np.asarray([3, 3, 17, 0], np.int32)  # a duplicate included
     is_w = np.asarray([0.5, 0.5, 1.0, 0.25], np.float32)
     j_rows = jrep.gather_rows(jstate.replay, jnp.asarray(idx))
-    t_rows = trep.gather_rows(tstate.replay, torch.from_numpy(idx).long())
     jopt = jlearner.make_optimizer(jsetup.train)
     j_update = jax.jit(lambda s, p: jlearner.sgd_update(jsetup, jopt, s, presampled=p))
     jstate2, jm = j_update(jstate, (j_rows, jnp.asarray(is_w), jnp.asarray(idx)))
     tstate2, tm = tlearner.sgd_update(
         tsetup, tlearner.make_optimizer(tsetup.train), tstate,
-        presampled=(t_rows, torch.from_numpy(is_w), torch.from_numpy(idx).long()),
+        presampled=(torch.from_numpy(is_w), torch.from_numpy(idx).long()),
     )
     assert tm.keys() == jm.keys()
     for k in jm:

@@ -160,6 +160,53 @@ def test_sample_indices_with_jax_uniforms_match():
         assert float(tstate.weight[t_idx].min()) > 0  # never an empty or invalid slot
 
 
+def test_add_matches_jax():
+    """Unpacked episodes through both packages' add: every ring field equal."""
+    jstate, tstate = jrep.init_replay(JCFG), trep.init_replay(TCFG, "cpu")
+    rng = np.random.RandomState(5)
+    for M in (24, 30, 40):
+        fields = {
+            "priv_s": (rng.rand(M, T, PI, 40) < 0.3).astype(np.float32),
+            "legal_move": (rng.rand(M, T, PI, 21) < 0.5).astype(np.float32),
+            "own_hand": (rng.rand(M, T, PI, 15) < 0.3).astype(np.float32),
+            "action": rng.randint(0, 21, (M, T, PI)).astype(np.int32),
+            "reward": rng.randn(M, T).astype(np.float32),
+            "bootstrap": (rng.rand(M, T) < 0.8).astype(np.float32),
+            "seq_len": rng.randint(1, T + 1, (M,)).astype(np.float32),
+        }
+        prio = rng.uniform(0.05, 2.0, (M,)).astype(np.float32)
+        jstate = jrep.add(jstate, JCFG, jrep.EpisodeBatch(**{k: jnp.asarray(v) for k, v in fields.items()}),
+                          jnp.asarray(prio))
+        tep = trep.EpisodeBatch(**{k: torch.from_numpy(v.astype(np.int64) if k == "action" else v)
+                                   for k, v in fields.items()})
+        tstate = trep.add(tstate, TCFG, tep, torch.from_numpy(prio))
+    for f in jstate._fields:
+        if f == "weight":
+            np.testing.assert_allclose(tstate.weight.numpy(), np.asarray(jstate.weight), rtol=1e-6, atol=0)
+        else:
+            np.testing.assert_array_equal(getattr(tstate, f).numpy(), np.asarray(getattr(jstate, f)), err_msg=f)
+
+
+def test_sample_indices_rows_with_jax_keys_match():
+    """The [U, B] path: one prefix sum, each row its own stratified draw
+    from its key's uniforms, IS weights normalised per row."""
+    jstate, tstate = filled()
+    keys = jax.random.split(jax.random.PRNGKey(11), 5)
+    j_idx, j_isw = jrep.sample_indices(jstate, JCFG, keys, 16)
+    u = np.stack([np.array(jax.random.uniform(k, (16,))) for k in keys])
+    t_idx, t_isw = trep.sample_indices(tstate, TCFG, 16, uniforms=torch.from_numpy(u))
+    assert t_idx.shape == t_isw.shape == (5, 16)
+    np.testing.assert_array_equal(t_idx.numpy(), np.asarray(j_idx))
+    np.testing.assert_allclose(t_isw.numpy(), np.asarray(j_isw), rtol=1e-6, atol=0)
+    assert (t_isw.max(dim=1).values == 1.0).all() and len(set(t_isw.min(dim=1).values.tolist())) > 1
+    # Each row is what a one-batch call draws; the CPU's vector powers over
+    # [5, 16] and [16] elements may round the last bit apart.
+    for row in range(5):
+        r_idx, r_isw = trep.sample_indices(tstate, TCFG, 16, uniforms=torch.from_numpy(u[row]))
+        assert torch.equal(r_idx, t_idx[row])
+        np.testing.assert_allclose(r_isw.numpy(), t_isw[row].numpy(), rtol=1e-6, atol=0)
+
+
 def test_sample_indices_from_a_generator_is_stratified():
     _, tstate = filled()
     gen = torch.Generator().manual_seed(0)

@@ -145,12 +145,11 @@ def test_sgd_update_through_sample_batch_matches_jax():
     idx = np.asarray([7, 7, -1, 30], np.int32)
     is_w = np.asarray([1.0, 1.0, 0.5, 0.75], np.float32)
     j_rows = jrep.gather_rows(jstate.replay, jnp.asarray(idx))
-    t_rows = trep.gather_rows(tstate.replay, torch.from_numpy(idx).long())
     jopt = jlearner.make_optimizer(jsetup.train)
     jstate2, jm = jax.jit(lambda s, p: jlearner.sgd_update(jsetup, jopt, s, presampled=p))(
         jstate, (j_rows, jnp.asarray(is_w), jnp.asarray(idx)))
     tstate2, tm = tlearner.sgd_update(tsetup, tlearner.make_optimizer(tsetup.train), tstate,
-                                      presampled=(t_rows, torch.from_numpy(is_w), torch.from_numpy(idx).long()))
+                                      presampled=(torch.from_numpy(is_w), torch.from_numpy(idx).long()))
     for k in jm:
         np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-5, err_msg=k)
     for t, j in zip(tlearner.param_leaves(tstate2.params.online), jax.tree_util.tree_leaves(jstate2.params.online)):
