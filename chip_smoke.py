@@ -94,6 +94,24 @@ Phases, each printing JSON lines (any failure exits nonzero):
               state, a chunk of one update with the snapshot on and off gives
               the same bits (params, replay weights, loss) (stacked_td runs
               the learner's two forwards as without it: the same numbers);
+     obl         OBL's public-LSTM net at its published widths, random weights
+              from a seeded CPU generator written as a released checkpoint and
+              loaded through loaders.load_obl_model: 1000 games through B1
+              and through the plain LSTM on the same decks, at least
+              OBL_AGREE of them with the same action sequence; its sequence
+              forward at [80, 128] (q and o, and its LSTM's outputs) no
+              further from float64 than F64_FACTOR times the plain version
+              over F64_SEEDS inputs;
+     action_matrix  docs/runs/iql_2p_r1_model.pkl, 1000 games through
+              tools/action_matrix.py, each entry of its well-filled rows
+              within a band of the JAX package's CPU matrix
+              (JAX_IQL_2P_COUNTS), P(R1 | P4) beside JAX's and BENCHMARKS.md's;
+     convert     the flagship through tools/convert_model.py --pthw: the .pthw
+              reloads to the checkpoint's params bit for bit; the .sparta
+              module on the card within SPARTA_TOL of r2d2_net.act through B1
+              (a, h0, c0) on every act of a 1000-game eval;
+     bench_train  tools/bench_train.py at its defaults in bfloat16, 3 timed
+              chunks: its line, finite rates, and launches of B1, B2 and B3;
   7. kernels  one {"kernels": [...]} line for B1 and B2 in float32 and in
               bfloat16 (with whether their SASS uses the tensor cores, their
               per-step µs, B2's split and B1 at the exact-priority and the
@@ -115,6 +133,7 @@ import dataclasses  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
 import os  # noqa: E402
+import shutil  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
 import tempfile  # noqa: E402
@@ -281,6 +300,58 @@ ALIGNED_BANDS = {
     "chunk_score": (22.5, 24.5),
     "chunk_len": (62.0, 74.0),
 }
+# Phase obl: OBL's public-LSTM net at its published widths (658 / 533 / 512,
+# 2 LSTM layers, 21 actions), random weights drawn from a CPU generator seeded
+# OBL_SEED, saved as a released checkpoint (with OBL's extra heads) and loaded
+# through loaders.load_obl_model; 1000 games through B1 and through the plain
+# LSTM on the same decks, at least OBL_AGREE of them with the same action
+# sequence (random weights score near 0, so equal scores alone would say
+# little); its sequence forward at [80, 128] by the float32 rule over
+# F64_SEEDS inputs.
+OBL_SEED = 12
+OBL_AGREE = 0.99
+# Phase action_matrix: docs/runs/iql_2p_r1_model.pkl, 1000 games, seed 1,
+# through tools/action_matrix.py. The reference is the JAX package's CPU run
+# of the same (python -m hanabi_sad_tpu.tools.action_matrix --weight
+# docs/runs/iql_2p_r1_model.pkl --num_game 1000 --seed 1 --out m.txt; score
+# 18.265): its transition counts, row = previous action, column = next, in
+# IDX2ACTION order (m.txt.npy, the 20 real actions). The decks differ, so
+# the matrices are compared by distribution: in every row with at least
+# AM_MIN_ROW transitions in both, each entry lies within AM_SIGMAS
+# standard errors of a difference of two proportions (pooled p) plus
+# AM_SLACK of JAX's. BENCHMARKS.md quotes P(R1 | P4) = 0.34 for this
+# checkpoint; the JAX run gives 404 / 1170 = 0.3453.
+IQL_2P = "docs/runs/iql_2p_r1_model.pkl"
+JAX_IQL_2P_COUNTS = [
+    [1023, 105, 404, 802, 172, 43, 8, 18, 2, 0, 9, 113, 21, 10, 111, 759, 1058, 712, 606, 611],
+    [129, 95, 2, 185, 56, 3, 0, 0, 0, 0, 3, 11, 8, 3, 20, 74, 168, 88, 26, 15],
+    [435, 2, 1069, 159, 66, 85, 3, 12, 1, 0, 10, 94, 20, 13, 74, 44, 101, 484, 719, 590],
+    [504, 85, 156, 2306, 129, 133, 2, 1, 0, 0, 9, 336, 10, 48, 293, 677, 1031, 1111, 614, 639],
+    [264, 78, 19, 253, 419, 11, 1, 7, 0, 0, 37, 26, 47, 20, 56, 93, 186, 175, 58, 22],
+    [439, 44, 623, 400, 195, 104, 17, 21, 30, 36, 1, 12, 16, 0, 44, 339, 396, 477, 427, 410],
+    [226, 54, 19, 110, 74, 22, 7, 9, 17, 12, 1, 5, 1, 0, 10, 278, 304, 315, 22, 61],
+    [270, 24, 156, 310, 119, 34, 10, 12, 0, 13, 0, 4, 5, 0, 6, 65, 116, 130, 214, 98],
+    [118, 29, 3, 59, 27, 32, 22, 2, 49, 57, 1, 1, 1, 1, 27, 404, 168, 144, 3, 22],
+    [1213, 166, 841, 1497, 468, 191, 23, 85, 36, 60, 3, 102, 16, 1, 218, 903, 1456, 1469, 956, 1127],
+    [4, 0, 7, 9, 27, 1, 2, 1, 0, 1, 1, 0, 2, 0, 6, 2, 1, 2, 0, 0],
+    [143, 5, 90, 404, 15, 2, 1, 2, 0, 2, 0, 7, 1, 0, 10, 0, 11, 5, 14, 8],
+    [33, 12, 10, 13, 44, 1, 4, 1, 0, 4, 5, 1, 15, 5, 4, 3, 3, 2, 2, 3],
+    [6, 0, 14, 55, 11, 0, 0, 0, 0, 0, 0, 1, 2, 6, 9, 1, 1, 1, 3, 0],
+    [149, 11, 82, 409, 74, 7, 3, 0, 1, 0, 2, 5, 2, 4, 62, 23, 26, 39, 32, 8],
+    [103, 2, 16, 1, 16, 530, 673, 0, 650, 2916, 0, 1, 0, 0, 0, 387, 5, 0, 0, 1],
+    [204, 50, 24, 3, 23, 815, 729, 0, 390, 2975, 0, 0, 0, 0, 1, 99, 48, 5, 2, 0],
+    [645, 99, 34, 21, 114, 248, 7, 1263, 3, 2545, 0, 4, 1, 3, 2, 262, 176, 102, 6, 4],
+    [145, 25, 72, 51, 34, 1259, 13, 88, 0, 2012, 0, 7, 6, 2, 8, 1, 17, 42, 32, 11],
+    [549, 22, 344, 1055, 62, 649, 70, 167, 0, 340, 0, 2, 1, 0, 4, 23, 107, 133, 91, 71],
+]
+AM_MIN_ROW = 200
+AM_SIGMAS = 5.0
+AM_SLACK = 0.01
+BENCHMARKS_R1_GIVEN_P4 = 0.34
+# Phase convert: the flagship through tools/convert_model.py; the .sparta
+# module (cuDNN's nn.LSTM, TF32 off) against r2d2_net.act through B1 on the
+# observations and hidden states of a 1000-game eval, a, h0 and c0.
+SPARTA_TOL = 1e-4
 # Tensor-core instructions in SASS: mma.sync compiles to HMMA, wgmma to HGMMA.
 TENSOR_CORE_SASS = ("HMMA", "HGMMA")
 # The kernels (by a part of their names) behind each LSTM entry point.
@@ -485,14 +556,14 @@ def main():
     from hanabi_sad_tpu_torch.game.config import GameConfig
     from hanabi_sad_tpu_torch.game.state import shuffled_decks
     from hanabi_sad_tpu_torch.models import lstm as lstm_mod
-    from hanabi_sad_tpu_torch.models import r2d2_net
+    from hanabi_sad_tpu_torch.models import public_lstm, r2d2_net
     from hanabi_sad_tpu_torch.ops import build
     from hanabi_sad_tpu_torch.ops import sample_batch as sb
     from hanabi_sad_tpu_torch.ops.lstm_seq import (
         LstmSeqDiff, lstm_bwd_kernel, lstm_bwd_recurrence_plain, lstm_seq_diff, lstm_seq_kernel, lstm_seq_plain)
     from hanabi_sad_tpu_torch.replay import prioritized as replay_mod
     from hanabi_sad_tpu_torch.rollout import continuous, runner
-    from hanabi_sad_tpu_torch.tools import crossplay_matrix, loaders
+    from hanabi_sad_tpu_torch.tools import action_matrix, bench_train, convert_model, crossplay_matrix, loaders
     from hanabi_sad_tpu_torch.train import checkpoint as ckpt
     from hanabi_sad_tpu_torch.train import learner, selfplay
     from hanabi_sad_tpu_torch.train.config import make_config
@@ -1641,6 +1712,203 @@ def main():
     del state
     torch.cuda.empty_cache()
 
+    # 6j. obl: OBL's public-LSTM net at its published widths, random weights
+    # from a seeded CPU generator, written as a released checkpoint with
+    # OBL's extra heads and loaded on the card through the loader; 1000 games
+    # through B1 and through the plain LSTM on the decks of phase 5.
+    obl_cfg = public_lstm.PublicNetConfig()
+    obl_sd = public_lstm.to_torch_state_dict(public_lstm.init_public_lstm(
+        obl_cfg, generator=torch.Generator().manual_seed(OBL_SEED), device="cpu"))
+    g = torch.Generator().manual_seed(OBL_SEED + 1)
+    obl_sd.update({k: torch.randn(8, generator=g) for k in public_lstm.OBL_STRIP_KEYS})
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "obl.pthw")
+        torch.save(obl_sd, path)
+        obl_policy = loaders.load_obl_model(path, device=dev)
+    del obl_sd
+
+    def obl_eval():
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = evaluate([obl_policy] * 2, num_game, seed, num_steps=num_steps, decks=decks, return_actions=True,
+                       device=dev)
+        return out, time.time() - t0
+
+    reset_counts()
+    (mean_ok, _, scores_ok, _, acts_k, done_k), obl_wall_k = obl_eval()
+    obl_counts = counts()
+    lstm_mod.lstm_seq = lstm_seq_plain
+    try:
+        (mean_op, _, scores_op, _, acts_p, done_p), obl_wall_p = obl_eval()
+    finally:
+        lstm_mod.lstm_seq = kernel_lstm_seq
+    if counts() != obl_counts:
+        fail("obl: the plain eval launched a kernel")
+    # a game's action sequence: its applied actions while it was live
+    same_game = (np.where(done_k, -1, acts_k) == np.where(done_p, -1, acts_p)).all(0)
+    obl_agree = float(same_game.mean())
+    obl_steps = int((~done_k).sum())
+    emit({"phase": "obl", "config": dataclasses.asdict(obl_cfg), "weights": f"random, seed {OBL_SEED}",
+          "num_game": num_game, "seed": seed, "kernel": {"mean": mean_ok, "wall_s": obl_wall_k},
+          "plain": {"mean": mean_op, "wall_s": obl_wall_p}, "live_steps": obl_steps,
+          "same_action_sequence": obl_agree, "same_score": float(np.mean(np.equal(scores_ok, scores_op))),
+          "launches": obl_counts, "card": smi_line})
+    if obl_counts["b1"] == 0:
+        fail("obl: the eval did not launch B1")
+    if obl_agree < OBL_AGREE:
+        fail(f"obl: kernel and plain paths play the same actions in only {obl_agree:.4f} of games")
+
+    # OBL's sequence forward at the learner shape by the float32 rule, on its
+    # outputs (q, o) and on its LSTM's (outs, hT, cT: the public branch at
+    # OBL's inputs; at random weights o is small and its float32 rounding
+    # outside the LSTM is the same in both float32 runs)
+    T, B = B1_CASES["learner"]
+    op32 = obl_policy.params.online
+    op64 = public_lstm.PublicLSTMParams(*[
+        [{k: v.double() for k, v in d.items()} for d in f] if isinstance(f, list) else {k: v.double() for k, v in f.items()}
+        for f in op32])
+    lstm_seen = {}
+
+    def recording(fn, who):
+        def run(params_, xs, hidden):
+            out = fn(params_, xs, hidden)
+            lstm_seen[who] = flat3(out)
+            return out
+        return run
+
+    oworst = {f"{part}.{who}": 0.0 for part in ("out", "lstm") for who in ("B1", "plain")}
+    reset_counts()
+    with torch.no_grad():
+        for s_ in range(F64_SEEDS):
+            g = torch.Generator().manual_seed(OBL_SEED + 2 + s_)
+            obs = (torch.rand(T, B, 838, generator=g) < 0.2).float().to(dev)
+            legal = (torch.rand(T, B, 21, generator=g) < 0.5).float().to(dev)
+            legal[..., 20] = 1.0
+            act_ = torch.randint(0, 21, (T, B), generator=g).to(dev)
+            got = {}
+            try:
+                for who, fn, p_, x_, lm_ in (("B1", kernel_lstm_seq, op32, obs, legal),
+                                             ("plain", lstm_seq_plain, op32, obs, legal),
+                                             ("f64", lstm_seq_plain, op64, obs.double(), legal.double())):
+                    lstm_mod.lstm_seq = recording(fn, who)
+                    got[who] = public_lstm.forward(p_, obl_cfg, *public_lstm.sad_slice(x_), lm_, act_)[2:]
+            finally:
+                lstm_mod.lstm_seq = kernel_lstm_seq
+            for who in ("B1", "plain"):
+                for part, ys, refs in (("out", got[who], got["f64"]), ("lstm", lstm_seen[who], lstm_seen["f64"])):
+                    oworst[f"{part}.{who}"] = max(oworst[f"{part}.{who}"],
+                                                  max(largest_gap(y, r64) for y, r64 in zip(ys, refs)))
+    obl_fwd_counts = counts()
+    o_ratio = {part: oworst[f"{part}.B1"] / oworst[f"{part}.plain"] for part in ("out", "lstm")}
+    emit({"phase": "obl", "check": "forward at the learner shape against float64", "T": T, "B": B,
+          "seeds": F64_SEEDS, "outputs": {"out": ["q", "o"], "lstm": ["outs", "hT", "cT"]},
+          "largest_gap_to_f64": oworst, "ratio_to_plain": o_ratio, "factor": F64_FACTOR, "launches": obl_fwd_counts})
+    if obl_fwd_counts["b1"] != F64_SEEDS * 2 * L:
+        fail(f"obl: the forwards launched {obl_fwd_counts}, expected {2 * L} of B1 each")
+    bad = {k: v for k, v in o_ratio.items() if not v <= F64_FACTOR}
+    if bad:
+        fail(f"obl: the forward through B1 lies further than {F64_FACTOR}x the plain version from float64: {bad}")
+    del obl_policy, op32, op64, obs, legal, got, lstm_seen
+    torch.cuda.empty_cache()
+
+    # 6k. action_matrix: the 2-player IQL checkpoint through the tool, 1000
+    # games, against the JAX package's CPU matrix by distribution.
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    am_normed, am_counts = action_matrix.main(["--weight", IQL_2P, "--num_game", str(num_game),
+                                               "--seed", str(seed), "--device", "cuda"])
+    am_wall = time.time() - t0
+    am_launches = counts()
+    jax_counts = np.array(JAX_IQL_2P_COUNTS, dtype=np.float64)
+    port_counts = am_counts[:20, :20].astype(np.float64)
+    n_port, n_jax = port_counts.sum(1), jax_counts.sum(1)
+    rows = [i for i in range(20) if n_port[i] >= AM_MIN_ROW and n_jax[i] >= AM_MIN_ROW]
+    am_worst, am_bad = 0.0, []
+    for i in rows:
+        p_port, p_jax = port_counts[i] / n_port[i], jax_counts[i] / n_jax[i]
+        pooled = (port_counts[i] + jax_counts[i]) / (n_port[i] + n_jax[i])
+        band = AM_SIGMAS * np.sqrt(pooled * (1 - pooled) * (1 / n_port[i] + 1 / n_jax[i])) + AM_SLACK
+        excess = np.abs(p_port - p_jax) / band
+        am_worst = max(am_worst, float(excess.max()))
+        am_bad += [(action_matrix.IDX2ACTION[i], action_matrix.IDX2ACTION[j]) for j in np.where(excess > 1)[0]]
+    p4, r1 = action_matrix.IDX2ACTION.index("P4"), action_matrix.IDX2ACTION.index("R1")
+    emit({"phase": "action_matrix", "checkpoint": IQL_2P, "num_game": num_game, "seed": seed,
+          "rows_compared": len(rows), "row_counts": {"port": n_port.astype(int).tolist(),
+                                                    "jax": n_jax.astype(int).tolist()},
+          "largest_gap_over_band": am_worst, "outside_band": am_bad,
+          "p_r1_given_p4": {"port": float(am_normed[p4, r1]), "jax_cpu": float(jax_counts[p4, r1] / n_jax[p4]),
+                            "benchmarks_md": BENCHMARKS_R1_GIVEN_P4, "n_port": int(n_port[p4])},
+          "wall_s": am_wall, "launches": am_launches, "card": smi_line})
+    if am_launches["b1"] == 0:
+        fail("action_matrix: the eval did not launch B1")
+    if len(rows) < 10:
+        fail(f"action_matrix: only {len(rows)} rows with {AM_MIN_ROW} transitions in both")
+    if am_bad:
+        fail(f"action_matrix: entries outside the band of the JAX package's matrix: {am_bad}")
+
+    # 6l. convert: the flagship through tools/convert_model.py; the .pthw
+    # reloads to the .pkl's params bit for bit, and the .sparta module on the
+    # card gives r2d2_net.act's a, h0 and c0 on a 1000-game eval's inputs.
+    reset_counts()
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        model = os.path.join(tmp, "flagship.pkl")
+        shutil.copy(FLAGSHIP, model)
+        sparta_path = convert_model.main(["--model", model, "--pthw", "--device", "cuda"])
+        pthw = loaders.load_sad_model(os.path.join(tmp, "flagship.pthw"), device=dev)
+        sparta = torch.jit.load(sparta_path, map_location=dev)
+        sparta_bytes = os.path.getsize(sparta_path)
+    convert_s = time.time() - t0
+    same_params = all(torch.equal(a, b) for a, b in zip(learner.param_leaves(pthw.params.online),
+                                                         learner.param_leaves(policy.params.online)))
+    del pthw
+    sparta_gap = {"a": 0.0, "h0": 0.0, "c0": 0.0}
+    Ln, D = policy.agent_cfg.net.num_lstm_layer, policy.agent_cfg.net.hid_dim
+
+    def sparta_checked_act(params, cfg, obs, hidden, generator):
+        n = obs["priv_s"].shape[0]
+        s_ = obs["priv_s"].reshape(n, -1)
+        hid = {"h0": hidden.h.reshape(n, Ln, D), "c0": hidden.c.reshape(n, Ln, D)}
+        a, new = r2d2_net.act(params.online, cfg.net, s_, hid)
+        res = sparta({"s": s_, "h0": hid["h0"], "c0": hid["c0"]})
+        for k, want in (("a", a), ("h0", new["h0"]), ("c0", new["c0"])):
+            sparta_gap[k] = max(sparta_gap[k], float((res[k] - want).abs().max()))
+        return r2d2_agent.act(params, cfg, obs, hidden, generator)
+
+    checked = loaders.EvalPolicy(policy.params, policy.agent_cfg, sparta_checked_act, policy.sad)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    mean_c = evaluate([checked, checked], num_game, seed, num_steps=num_steps, decks=decks, device=dev)[0]
+    convert_wall = time.time() - t0
+    convert_counts = counts()
+    emit({"phase": "convert", "checkpoint": FLAGSHIP, "pthw_same_params": same_params, "sparta_bytes": sparta_bytes,
+          "convert_s": convert_s, "num_game": num_game, "eval_mean": mean_c, "sparta_vs_b1_gap": sparta_gap,
+          "tol": SPARTA_TOL, "wall_s": convert_wall, "launches": convert_counts, "card": smi_line})
+    if not same_params:
+        fail("convert: the .pthw does not reload to the checkpoint's params")
+    if convert_counts["b1"] == 0:
+        fail("convert: the check did not launch B1")
+    if mean_c != mean_k:
+        fail(f"convert: the checked eval's mean {mean_c} differs from phase 5's {mean_k}")
+    if not max(sparta_gap.values()) <= SPARTA_TOL:
+        fail(f"convert: the .sparta module lies {sparta_gap} from r2d2_net.act through B1")
+    del sparta, checked
+
+    # 6m. bench_train: the tool at its defaults in bfloat16, 3 timed chunks
+    reset_counts()
+    t0 = time.time()
+    bench = bench_train.main(["--compute_dtype", "bfloat16", "--reps", "3"])
+    bench_launches = counts()
+    emit({"phase": "bench_train", "args": {"compute_dtype": "bfloat16", "reps": 3}, **bench,
+          "wall_s": time.time() - t0, "launches": bench_launches, "card": smi_line})
+    if not all(math.isfinite(v) and v > 0 for k, v in bench.items() if k != "chunk_s"):
+        fail(f"bench_train: a rate is not finite and positive: {bench}")
+    missing = [k for k in ("b1_bf16", "b2", "b2_bwd_bf16", "b3") if bench_launches[k] == 0]
+    if missing:
+        fail(f"bench_train launched none of {missing}")
+    torch.cuda.empty_cache()
+
     # 7. kernels: launches are the 3 train chunks' of phase 6 (the eval's B1
     # count is on its line), and of phase 6b for the bf16 routes
     b1, b2, b3t = timing["B1_learner"], timing["B2_learner"], timing["B3_flagship"]
@@ -1659,7 +1927,9 @@ def main():
          "rollout_shape": timing["B1_rollout"], "priority_shape": timing["B1_priority"],
          "priority_launches": prio_counts["b1"], "crossplay_launches": xp_counts["b1"],
          "aligned_priority_shape": timing["B1_aligned_priority"],
-         "aligned_priority_launches": aligned_prio_counts["b1"], "train_aligned_launches": aligned_totals["b1"]},
+         "aligned_priority_launches": aligned_prio_counts["b1"], "train_aligned_launches": aligned_totals["b1"],
+         "obl_launches": obl_counts["b1"], "obl_forward_launches": obl_fwd_counts["b1"],
+         "action_matrix_launches": am_launches["b1"], "convert_launches": convert_counts["b1"]},
         {"name": "lstm_seq_diff (B2)", "route": "cuda", "source": "hanabi_sad_tpu_torch/ops/csrc/lstm_bwd.cu",
          "replaces": "hanabi_sad_tpu/ops/experimental/pallas_lstm.py:212",
          "launches": totals["b2_bwd"], "calls": totals["b2"], "max_abs_err": b2_max_err, "ms": b2["ms"],
@@ -1676,7 +1946,8 @@ def main():
          "bound_ms": b3t["bound_ms"], "bound_by": b3t["bound_by"], "library_ms": None,
          "shape": "64 of 65,536 episodes x [80, 2, 110] bytes -> Batch [80, 64, 2, 838 + 21 + 15]",
          "iql_launches": iql_totals["b3"], "iql_shape": iql_shape, "train_op_launches": op_totals["b3"],
-         "train_aligned_launches": aligned_totals["b3"], "train_knobs_launches": knob_totals["b3"]},
+         "train_aligned_launches": aligned_totals["b3"], "train_knobs_launches": knob_totals["b3"],
+         "bench_train_launches": bench_launches["b3"]},
         {"name": "lstm_seq bf16 (B1)", "route": "cuda", "source": "hanabi_sad_tpu_torch/ops/csrc/lstm_bf16.cu",
          "replaces": "hanabi_sad_tpu/ops/experimental/pallas_lstm.py:166",
          "launches": bf16_totals["b1_bf16"], "max_abs_err": max(v for k, v in bf16_errors.items() if k != "learner"),
@@ -1687,7 +1958,7 @@ def main():
          "step_us": timing["persistent_step_us"]["B1_bf16"],
          "rollout_shape": timing["B1_bf16_rollout"], "rollout_3p_shape": timing["B1_bf16_rollout_3p"],
          "priority_shape": timing["B1_bf16_priority"], "train_op_launches": op_totals["b1_bf16"],
-         "train_knobs_launches": knob_totals["b1_bf16"]},
+         "train_knobs_launches": knob_totals["b1_bf16"], "bench_train_launches": bench_launches["b1_bf16"]},
         {"name": "lstm_seq_diff bf16 (B2)", "route": "cuda",
          "source": "hanabi_sad_tpu_torch/ops/csrc/lstm_bf16.cu",
          "replaces": "hanabi_sad_tpu/ops/experimental/pallas_lstm.py:212",
@@ -1697,13 +1968,16 @@ def main():
          "shape": "T=80 B=128 H=512 L=2, forward + backward",
          "tensor_cores": tensor_cores["lstm_bwd_bf16"],
          "step_us": timing["persistent_step_us"]["B2_bwd_bf16"], "split_ms": timing["B2_split_ms"]["bf16"],
-         "train_op_launches": op_totals["b2_bwd_bf16"], "train_knobs_launches": knob_totals["b2_bwd_bf16"]},
+         "train_op_launches": op_totals["b2_bwd_bf16"], "train_knobs_launches": knob_totals["b2_bwd_bf16"],
+         "bench_train_launches": bench_launches["b2_bwd_bf16"], "bench_train_calls": bench_launches["b2"]},
     ], "train_chunk_wall_s": train_walls, "train_bf16_chunk_wall_s": bf16_walls,
         "train_iql_chunk_wall_s": iql_walls, "iql_launches": iql_totals, "eval_iql_3p_launches": eval3_counts,
         "train_op_chunk_wall_s": op_walls, "train_op_launches": op_totals, "priority_launches": prio_counts,
         "crossplay_launches": xp_counts, "train_aligned_chunk_wall_s": aligned_walls,
         "train_aligned_launches": aligned_totals, "aligned_priority_launches": aligned_prio_counts,
-        "train_knobs_chunk_wall_s": knob_walls, "train_knobs_launches": knob_totals})
+        "train_knobs_chunk_wall_s": knob_walls, "train_knobs_launches": knob_totals, "obl_launches": obl_counts,
+        "obl_forward_launches": obl_fwd_counts, "action_matrix_launches": am_launches,
+        "convert_launches": convert_counts, "bench_train_launches": bench_launches})
     print(f"# total seconds: {time.time() - t_all:.1f}", flush=True)
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})

@@ -8,6 +8,9 @@
   python -m hanabi_sad_tpu_torch.tools.eval_model --paper op --root models/op \
       --method sad-aux-op --idx1 1 --idx2 3
 
+  # a released OBL model in self-play
+  python -m hanabi_sad_tpu_torch.tools.eval_model --paper obl --obl_path models/obl/obl.pthw
+
 Runs on the CUDA card unless --device says otherwise (--device cpu).
 """
 
@@ -38,7 +41,7 @@ def evaluate_agents(policies, num_game, seed, bomb, num_run=1, device=None):
 
 def main(argv=None):
     parser = argparse.ArgumentParser()
-    parser.add_argument("--paper", default="sad", type=str, choices=("sad", "op"))
+    parser.add_argument("--paper", default="sad", type=str, choices=("sad", "op", "obl"))
     parser.add_argument("--weight", default=None, type=str)
     parser.add_argument("--weight2", default=None, type=str, help="cross-play seat 2")
     parser.add_argument("--num_game", default=5000, type=int)
@@ -52,6 +55,8 @@ def main(argv=None):
     parser.add_argument("--method", default="sad-aux-op", type=str)
     parser.add_argument("--idx1", default=1, type=int)
     parser.add_argument("--idx2", default=1, type=int)
+    # a released OBL model
+    parser.add_argument("--obl_path", default=None, type=str)
     parser.add_argument("--device", default=None, type=str, help="default: cuda")
     args = parser.parse_args(argv)
 
@@ -62,11 +67,15 @@ def main(argv=None):
         p1 = loaders.load_any(args.weight, args.hand_size, device)
         p2 = loaders.load_any(args.weight2 or args.weight, args.hand_size, device)
         policies = [p1] + [p2] * (args.num_player - 1)
-    else:
+    elif args.paper == "op":
         policies = [
             loaders.load_op_model(args.root, args.method, idx, args.hand_size, device)
             for idx in (args.idx1, args.idx2)
         ]
+    else:
+        if not args.obl_path:
+            parser.error("--obl_path is required with --paper obl")
+        policies = [loaders.load_obl_model(args.obl_path, device)] * 2
     return evaluate_agents(
         policies, args.num_game, args.seed, args.bomb, num_run=args.num_run, device=device
     )

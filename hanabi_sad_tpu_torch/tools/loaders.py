@@ -2,8 +2,9 @@
 
 A loaded model is an EvalPolicy: params + an AgentConfig describing the net +
 the act function used by the eval pipeline. Supports this framework's `.pkl`
-params payloads, reference `.pthw` state dicts (SAD / OP release files) and
-the OP release's 12-model architecture grid. OBL models are not ported.
+params payloads, reference `.pthw` state dicts (SAD / OP release files), the
+OP release's 12-model architecture grid and released OBL PublicLSTM
+checkpoints (`load_obl_model`).
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from typing import Any, Callable
 from hanabi_sad_tpu_torch.agent import r2d2_agent
 from hanabi_sad_tpu_torch.agent.r2d2_agent import AgentConfig, AgentParams
 from hanabi_sad_tpu_torch.device import resolve_device
-from hanabi_sad_tpu_torch.models import torch_import
+from hanabi_sad_tpu_torch.models import public_lstm, torch_import
 from hanabi_sad_tpu_torch.models.r2d2_net import NetConfig
 from hanabi_sad_tpu_torch.train import checkpoint as ckpt
 
@@ -64,6 +65,31 @@ def load_op_model(folder: str, method: str, idx: int, hand_size: int = 5, device
         torch_import.infer_net_config(sd, hand_size=hand_size), num_fc_layer=num_fc, skip_connect=skip
     )
     return _pthw_policy(*torch_import.from_torch_state_dict(sd, net_cfg, device))
+
+
+def load_obl_model(path: str, device=None) -> EvalPolicy:
+    """A released OBL PublicLSTM `.pthw` -> policy on `device`. It plays on
+    the SAD observation (`public_lstm.sad_slice`); its NetConfig only
+    carries the hidden state's shape for the eval pipeline."""
+    net_params, net_cfg = public_lstm.load_obl_pthw(path, device)
+    shim = NetConfig(
+        in_dim=838,
+        hid_dim=net_cfg.hid_dim,
+        out_dim=net_cfg.out_dim,
+        num_lstm_layer=net_cfg.num_lstm_layer,
+        hand_size=net_cfg.hand_size,
+    )
+    base_act = public_lstm.make_act_fn(net_cfg)
+
+    def act_fn(p, agent_cfg, obs, hidden, generator=None):
+        return base_act(p.online, agent_cfg, obs, hidden, generator)
+
+    return EvalPolicy(
+        params=AgentParams(online=net_params, target=net_params),
+        agent_cfg=AgentConfig(net=shim),
+        act_fn=act_fn,
+        sad=True,
+    )
 
 
 def load_native_checkpoint(path: str, hand_size: int = 5, device=None) -> EvalPolicy:

@@ -1,7 +1,8 @@
 """Batched evaluation harness (counterpart of `hanabi_sad_tpu/train/evaluate.py`).
 
 evaluate(policies, ...) plays num_game greedy games with one policy per seat
-and returns (mean score, perfect rate, scores, num_perfect)."""
+and returns (mean score, perfect rate, scores, num_perfect), and with
+return_actions also the applied actions and done flags."""
 
 from __future__ import annotations
 
@@ -34,6 +35,7 @@ def evaluate(
     shuffle_color: bool = False,
     color_perm: Optional[torch.Tensor] = None,
     shuffle_obs: bool = False,
+    return_actions: bool = False,
     device=None,
 ):
     """decks: optional injected [num_game, 50] card codes; without them the
@@ -44,7 +46,11 @@ def evaluate(
     permutation (Other-Play's cross-play under relabelling; one seat keeps
     the identity), `color_perm` [num_game, P, C] if given, else drawn from a
     CPU generator seeded with seed + PERM_SEED_TAG. shuffle_obs: shuffled
-    partner hands, as the trainer's eval of a shuffle_obs run sees them."""
+    partner hands, as the trainer's eval of a shuffle_obs run sees them.
+
+    return_actions: also return, as numpy arrays, the action applied at each
+    step [num_steps, num_game] and whether the game was already done before
+    it [num_steps, num_game], as the JAX function does."""
     device = resolve_device(device)
     num_player = len(policies)
     sad = policies[0].sad
@@ -64,7 +70,7 @@ def evaluate(
     decks = decks.to(device)
     if shuffle_color and color_perm is None:
         color_perm = sample_perms(env_cfg.game, decks.shape[0], torch.Generator().manual_seed(seed + PERM_SEED_TAG))
-    scores, done = runner.eval_rollout(
+    out = runner.eval_rollout(
         [p.params for p in policies],
         [p.agent_cfg for p in policies],
         env_cfg,
@@ -72,11 +78,16 @@ def evaluate(
         num_steps=num_steps,
         act_fns=[p.act_fn for p in policies],
         color_perm=None if color_perm is None else color_perm.to(device),
+        return_actions=return_actions,
     )
+    scores, done = out[:2]
     # Eval games have no forced-termination forfeit, so num_steps must cover
     # the longest game or the mean would count truncated games.
     if not bool(done.all()):
         raise RuntimeError("eval games did not finish; raise num_steps")
     scores = scores.cpu().numpy()
     num_perfect = int((scores == 25).sum())
-    return float(scores.mean()), num_perfect / len(scores), scores.tolist(), num_perfect
+    base = (float(scores.mean()), num_perfect / len(scores), scores.tolist(), num_perfect)
+    if return_actions:
+        return base + tuple(x.cpu().numpy() for x in out[2:])
+    return base

@@ -20,29 +20,22 @@ the most. Needs a CUDA card.
 import argparse
 import json
 import subprocess
-import time
 
 import torch
 
+from hanabi_sad_tpu_torch.tools.bench_train import timed, warm_up
 from hanabi_sad_tpu_torch.train import learner, selfplay
 from hanabi_sad_tpu_torch.train.config import make_config, parse_overrides
 
 FLAGSHIP = "docs/runs/sad_aux_r4_soup10.pkl"
-
-
-def timed(fn):
-    torch.cuda.synchronize()
-    t0 = time.time()
-    out = fn()
-    torch.cuda.synchronize()
-    return out, time.time() - t0
+DEV = torch.device("cuda")
 
 
 def phases(setup, optimizer, state):
     """One train chunk as learner.train_chunk runs it, timed in two phases:
     collect_into_replay, then train_updates."""
-    (state, _), t_collect = timed(lambda: learner.collect_into_replay(setup, state))
-    (state, _), t_upd = timed(lambda: learner.train_updates(setup, optimizer, state))
+    (state, _), t_collect = timed(lambda: learner.collect_into_replay(setup, state), DEV)
+    (state, _), t_upd = timed(lambda: learner.train_updates(setup, optimizer, state), DEV)
     return state, {"collect_s": t_collect, "updates_s": t_upd, "chunk_s": t_collect + t_upd}
 
 
@@ -75,22 +68,20 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=30).stdout.strip()
-    dev = torch.device("cuda")
     overrides = dict(pred_weight=0.25, burn_in_frames=2048, **parse_overrides(args.set))
     setup = learner.make_setup(make_config(args.preset, **overrides))
     print(json.dumps({"preset": args.preset, "weights": args.weights, "overrides": overrides}), flush=True)
-    state = learner.init_train_state(setup, setup.train.seed, dev)
+    state = learner.init_train_state(setup, setup.train.seed, DEV)
     state = selfplay.load_model(args.weights, state)
     optimizer = learner.make_optimizer(setup.train)
-    state, _ = learner.collect_only(setup, state)
-    state, _ = learner.train_chunk(setup, optimizer, state)  # warm-up
+    state, _ = warm_up(setup, optimizer, state)
     for i in range(args.chunks):
         state, t = phases(setup, optimizer, state)
         print(json.dumps({"chunk": i, **t, "card": card}), flush=True)
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        (state, _), wall = timed(lambda: learner.train_chunk(setup, optimizer, state))
+        (state, _), wall = timed(lambda: learner.train_chunk(setup, optimizer, state), DEV)
     busy, n_kernels = busy_seconds(prof.events())
     averages = prof.key_averages()
     top = sorted(averages, key=lambda a: a.self_device_time_total, reverse=True)[:12]

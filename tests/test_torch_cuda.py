@@ -872,3 +872,75 @@ def test_pthw_and_crossplay_matrix_on_card(card, tmp_path):
     plain, relabeled, _ = crossplay_matrix.relabel_table([pthw], 16, 7778, device=card)
     assert plain[0] == evaluate([native, native], 16, 7778, device=card)[0]
     assert relabeled[0] == evaluate([native, native], 16, 7778, shuffle_color=True, device=card)[0]
+
+
+@pytest.mark.cuda
+def test_obl_forward_and_act_through_b1_match_plain_on_card(card, monkeypatch):
+    """OBL's public-LSTM net at a small width (hid 64): `forward` at
+    [12, 16] and `act` from a non-zero hidden through B1, against the same
+    calls through the plain LSTM. Tolerance 1e-4, as B1 against its plain
+    version (float32 sums in another order)."""
+    from hanabi_sad_tpu_torch.models import public_lstm
+
+    cfg = public_lstm.PublicNetConfig(hid_dim=64)
+    params = public_lstm.init_public_lstm(cfg, generator=torch.Generator().manual_seed(3), device=card)
+    g = torch.Generator().manual_seed(4)
+    T, B = 12, 16
+    s = (torch.rand(T, B, 838, generator=g) < 0.2).float().to(card)
+    legal = (torch.rand(T, B, 21, generator=g) < 0.5).float().to(card)
+    action = torch.randint(0, 21, (T, B), generator=g).to(card)
+    hid = {k: (0.5 * torch.randn(B, 2, 64, generator=g)).to(card) for k in ("h0", "c0")}
+
+    def run():
+        with torch.no_grad():
+            q = public_lstm.forward(params, cfg, *public_lstm.sad_slice(s), legal, action)[2]
+            a, new = public_lstm.act(params, cfg, *public_lstm.sad_slice(s[0]), hid)
+        return [q, a, new["h0"], new["c0"]]
+
+    launches = lstm_seq_kernel.launches
+    kernel = run()
+    assert lstm_seq_kernel.launches == launches + 2 * 2 + 2  # forward: 2 L at T > 1; act: L at T = 1
+    monkeypatch.setattr(tlstm, "lstm_seq", lstm_seq_plain)
+    plain = run()
+    assert lstm_seq_kernel.launches == launches + 6
+    for k, p in zip(kernel, plain):
+        assert float((k - p).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_sparta_module_on_card_matches_b1_act(card, tmp_path, monkeypatch):
+    """The flagship exported by convert_model, loaded on the card (its LSTM
+    is cuDNN's, TF32 off), against r2d2_net.act through B1 from a non-zero
+    hidden: a, h0 and c0 within 1e-4."""
+    import shutil
+
+    from hanabi_sad_tpu_torch.tools import convert_model
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    shutil.copy(FLAGSHIP, tmp_path / "flagship.pkl")
+    net = torch.jit.load(convert_model.main(["--model", str(tmp_path / "flagship.pkl"), "--device", "cuda"]),
+                         map_location=card)
+    policy = loaders.load_any(FLAGSHIP, device=card)
+    g = torch.Generator().manual_seed(5)
+    B = 64
+    s = (torch.rand(B, 838, generator=g) < 0.2).float().to(card)
+    hid = {k: (0.5 * torch.randn(B, 2, 512, generator=g)).to(card) for k in ("h0", "c0")}
+    launches = lstm_seq_kernel.launches
+    with torch.no_grad():
+        a, new = tnet.act(policy.params.online, policy.agent_cfg.net, s, hid)
+        res = net({"s": s, **hid})
+    assert lstm_seq_kernel.launches > launches
+    for got, want in ((res["a"], a), (res["h0"], new["h0"]), (res["c0"], new["c0"])):
+        assert float((got - want).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_get_v1_on_card_equals_cpu(card):
+    from hanabi_sad_tpu_torch.utils import belief
+
+    g = torch.Generator().manual_seed(6)
+    counts = torch.tensor([3, 2, 2, 2, 1] * 5, dtype=torch.float32).repeat(4, 1)
+    v0 = (torch.rand(4, 10, 25, generator=g) > 0.5).float() * counts[:, None, :]
+    cpu = belief.get_v1(v0, counts)
+    on_card = belief.get_v1(v0.to(card), counts.to(card)).cpu()
+    assert float((on_card - cpu).abs().max()) <= 1e-6

@@ -30,6 +30,7 @@ from hanabi_sad_tpu_torch.rollout import runner as trunner
 from hanabi_sad_tpu_torch.tools import eval_model as teval_model
 from hanabi_sad_tpu_torch.tools import loaders as tloaders
 from hanabi_sad_tpu_torch.train.evaluate import evaluate
+from torch_parity import check_actions_up_to_near_ties, near_tie_steps
 
 FLAGSHIP = str(Path(__file__).resolve().parents[1] / "docs/runs/sad_aux_r4_soup10.pkl")
 IQL_3P = str(Path(__file__).resolve().parents[1] / "docs/runs/iql_3p_r5_model4.pkl")
@@ -89,27 +90,11 @@ def eval_parity(jpol, tpol, players, sad, seed):
 
     # JAX advantages along the trajectory, per seat, from the observations the
     # port saw (identical to JAX's up to a game's first differing action).
-    act = jax.jit(lambda p, x, h: jnet.act(p, jpol.agent_cfg.net, x, h))
+    act = jax.jit(lambda x, h: jnet.act(jpol.params.online, jpol.agent_cfg.net, x, h))
     hid = [{"h0": jnp.zeros((N, 2, 512)), "c0": jnp.zeros((N, 2, 512))} for _ in range(P)]
-    near_tie = np.zeros((STEPS, N), bool)
-    for t in range(STEPS):
-        advs = []
-        for p in range(P):
-            priv_s, legal = seen[P * t + p]
-            adv, hid[p] = act(jpol.params.online, jnp.asarray(priv_s), hid[p])
-            advs.append(np.where(legal > 0, np.asarray(adv), -np.inf))
-        cur = t % P  # the players move in turn from seat 0
-        top2 = -np.sort(-np.stack(advs, 1)[np.arange(N), np.full(N, cur)], axis=1)[:, :2]
-        near_tie[t] = np.isfinite(top2[:, 1]) & (top2[:, 0] - top2[:, 1] < TIE)
-
-    live = ~j_was_done
-    num_near = int((near_tie & live).sum())
-    print(f"near-tie steps: {num_near} of {int(live.sum())} live steps")
-    for i in range(N):
-        for t in np.where(live[:, i])[0]:
-            if t_applied[t, i] != j_applied[t, i]:
-                assert near_tie[t, i], f"game {i} step {t}: {t_applied[t, i]} vs {j_applied[t, i]}"
-                break  # the games part ways here
+    near_tie = near_tie_steps(act, seen, hid, STEPS, TIE)
+    num_near, _ = check_actions_up_to_near_ties(t_applied, j_applied, j_was_done, near_tie)
+    print(f"near-tie steps: {num_near} of {int((~j_was_done).sum())} live steps")
 
 
 def test_evaluate_and_its_guard(policies):

@@ -99,6 +99,19 @@ def test_slice_7_modules_import_no_jax(module):
         assert path in port_files() and bad == []
 
 
+@pytest.mark.parametrize("module", [
+    "hanabi_sad_tpu_torch/models/public_lstm.py", "hanabi_sad_tpu_torch/tools/action_matrix.py",
+    "hanabi_sad_tpu_torch/tools/convert_model.py", "hanabi_sad_tpu_torch/tools/bench_train.py",
+    "hanabi_sad_tpu_torch/utils/belief.py", "hanabi_sad_tpu_torch/utils/asserts.py",
+])
+def test_slice_9_modules_import_no_jax(module):
+    """OBL's net, the analysis and export tools and the last utils keep
+    their own copies of what they need from the JAX package."""
+    path = ROOT / module
+    assert path in port_files()
+    assert [m for m in imported_modules(path) if m.split(".")[0] in FORBIDDEN] == []
+
+
 def test_pthw_loading_and_crossplay_need_no_jax(tmp_path):
     """A reference state dict saved with torch.save loads through
     load_any into a policy, and the cross-play tool imports, with neither jax

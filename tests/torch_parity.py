@@ -111,3 +111,39 @@ def _field_type(template, field):
 def port_env_state(jstate):
     """A batched JAX EnvState as the port's EnvState."""
     return to_torch_tree(jstate, tenv.EnvState)
+
+
+def near_tie_steps(adv_fn, seen, hids, steps, tie):
+    """[steps, N] bool: where the acting seat's top two legal advantages lie
+    within `tie` of each other (float32 sums in another order may break such
+    a tie the other way). `seen` holds the (priv_s, legal) of every act call
+    of a greedy eval, step-major and seat-minor; `adv_fn(priv_s, hid) ->
+    (adv, hid)` is the JAX net's act, run from `hids` (one per seat) along
+    those observations. The players move in turn from seat 0."""
+    P = len(hids)
+    N = seen[0][0].shape[0]
+    near = np.zeros((steps, N), bool)
+    for t in range(steps):
+        advs = []
+        for p in range(P):
+            priv_s, legal = seen[P * t + p]
+            adv, hids[p] = adv_fn(jnp.asarray(priv_s), hids[p])
+            advs.append(np.where(legal > 0, np.asarray(adv), -np.inf))
+        top2 = -np.sort(-advs[t % P], axis=1)[:, :2]
+        near[t] = np.isfinite(top2[:, 1]) & (top2[:, 0] - top2[:, 1] < tie)
+    return near
+
+
+def check_actions_up_to_near_ties(t_applied, j_applied, j_was_done, near):
+    """Each game's applied actions [T, N] equal JAX's over its live steps up
+    to its first difference, which must lie at a near tie (the games part
+    ways there). Returns (live near-tie steps, games that parted)."""
+    live = ~j_was_done
+    parted = 0
+    for i in range(live.shape[1]):
+        for t in np.where(live[:, i])[0]:
+            if t_applied[t, i] != j_applied[t, i]:
+                assert near[t, i], f"game {i} step {t}: {t_applied[t, i]} vs {j_applied[t, i]}"
+                parted += 1
+                break
+    return int((near & live).sum()), parted
