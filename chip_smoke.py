@@ -112,12 +112,28 @@ Phases, each printing JSON lines (any failure exits nonzero):
               (a, h0, c0) on every act of a 1000-game eval;
      bench_train  tools/bench_train.py at its defaults in bfloat16, 3 timed
               chunks: its line, finite rates, and launches of B1, B2 and B3;
+     multigpu    data-parallel training (parallel/mesh.py) on 2 ranks sharing
+              the card over gloo, each rank a process of this script
+              (--multigpu_rank): the float32 flagship warm-started at 1024
+              global envs, one collect and one train chunk of 16 updates,
+              against 1 rank: equal chunk stats, the same ring bits and index
+              rows, the first update within MULTIGPU_FIRST_RTOL and the
+              chunk's means within MULTIGPU_CHUNK_RTOL; the 1000-game eval on
+              2 ranks against 1 rank; 2 bf16 ranks, 2 chunks within BANDS;
+              each rank's launches of B1, B2 and B3, the gradient
+              all-reduce's ms and the walls; then B1 and B2 at a rank's
+              learner shape B1_RANK against float64 and timed beside their
+              plain versions, cuDNN and the bound, in float32 and bf16;
+     multigpu_cli  torchrun --standalone --nproc_per_node 1 of the trainer
+              with --multihost 1 (nccl) for one short epoch: exit 0, nccl,
+              an eval line and latest.pkl;
   7. kernels  one {"kernels": [...]} line for B1 and B2 in float32 and in
               bfloat16 (with whether their SASS uses the tensor cores, their
               per-step µs, B2's split and B1 at the exact-priority and the
-              aligned-priority shapes), and B3, with the launches of the later
-              phases; every number on it is measured by this run but the
-              bound, which it computes.
+              aligned-priority shapes, and at a rank's learner shape), and B3,
+              with the launches of the later phases (per rank for multigpu);
+              every number on it is measured by this run but the bound,
+              which it computes.
 The line before the last is the card's name and power limit as nvidia-smi
 prints them; the last line is {"ok": true, "device": {...}}.
 
@@ -352,6 +368,23 @@ BENCHMARKS_R1_GIVEN_P4 = 0.34
 # module (cuDNN's nn.LSTM, TF32 off) against r2d2_net.act through B1 on the
 # observations and hidden states of a 1000-game eval, a, h0 and c0.
 SPARTA_TOL = 1e-4
+# Phase multigpu: the flagship trainer on W = 2 ranks sharing the card (one
+# process each, gloo: nccl refuses two ranks on one device) against 1 rank,
+# each run in processes of its own with a timeout. Gates of the float32 run:
+# equal collect stats, the same bits in the ring's filled rows, the same 16
+# index rows, the first update's loss and grad_norm within MULTIGPU_FIRST_RTOL
+# (float32 sums of two halves against one), the chunk's update means within
+# MULTIGPU_CHUNK_RTOL (the JAX package's own tolerance for the same check,
+# tests/test_sharding.py:117); the 1000-game eval's scores equal, or else at
+# least MULTIGPU_EVAL_AGREE of its games with the same actions. A rank's
+# learner shape is B1_RANK.
+MULTIGPU_WORLD = 2
+MULTIGPU_RANK_TIMEOUT_S = 240
+MULTIGPU_FIRST_RTOL = 1e-5
+MULTIGPU_CHUNK_RTOL = 2e-4
+MULTIGPU_EVAL_AGREE = 0.99
+B1_RANK = (80, 64)
+MULTIGPU_CLI_TIMEOUT_S = 240
 # Tensor-core instructions in SASS: mma.sync compiles to HMMA, wgmma to HGMMA.
 TENSOR_CORE_SASS = ("HMMA", "HGMMA")
 # The kernels (by a part of their names) behind each LSTM entry point.
@@ -525,6 +558,129 @@ def f32_hash(torch, dev):
         whole.update(h.digest())
         short[name] = h.hexdigest()[:16]
     return whole.hexdigest(), short
+
+
+def multigpu_rank(argv):
+    """One rank of phase multigpu, in a process of its own (`python3
+    chip_smoke.py --multigpu_rank R --world W --init file://... --out DIR
+    --dtype float32|bfloat16 --chunks C --eval_games G`): the flagship
+    trainer warm-started from FLAGSHIP at full width (1024 global envs) on
+    cuda:0, W ranks over gloo; one collect chunk, C train chunks of 16
+    updates, then G eval games of FLAGSHIP at seed 1 over the ranks. Writes
+    DIR/rank{R}.json (chunk stats, hashes of the ring's filled rows, every
+    update's sampled index row, loss and grad_norm, the chunk means, launches,
+    walls, the gradient all-reduce's ms) and DIR/rank{R}.npz (the final
+    params, the eval's scores and actions)."""
+    import argparse
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    parser = argparse.ArgumentParser()
+    for flag, kind in (("--multigpu_rank", int), ("--world", int), ("--init", str), ("--out", str),
+                       ("--dtype", str), ("--chunks", int), ("--eval_games", int)):
+        parser.add_argument(flag, type=kind, required=True)
+    args = parser.parse_args(argv)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from hanabi_sad_tpu_torch import parallel
+    from hanabi_sad_tpu_torch.ops.lstm_seq import LstmSeqDiff, lstm_bwd_kernel, lstm_seq_kernel
+    from hanabi_sad_tpu_torch.ops.sample_batch import sample_batch_kernel
+    from hanabi_sad_tpu_torch.replay import prioritized as replay_mod
+    from hanabi_sad_tpu_torch.tools import loaders
+    from hanabi_sad_tpu_torch.train import learner, selfplay
+    from hanabi_sad_tpu_torch.train.config import make_config
+    from hanabi_sad_tpu_torch.train.evaluate import evaluate
+    from hanabi_sad_tpu_torch.train.learner import param_leaves
+
+    dev = torch.device("cuda", 0)
+    if args.world > 1:
+        mesh = parallel.initialize_multihost(backend="gloo", init_method=args.init, world_size=args.world,
+                                             rank=args.multigpu_rank, device=dev)
+    else:
+        torch.cuda.set_device(dev)
+        mesh = parallel.make_mesh(dev)
+
+    def reset_counts():
+        lstm_seq_kernel.reset()
+        lstm_bwd_kernel.reset()
+        sample_batch_kernel.launches = LstmSeqDiff.calls = 0
+
+    def counts():
+        return {"b1": lstm_seq_kernel.launches, "b1_bf16": lstm_seq_kernel.launches_by_dtype["bf16"],
+                "b2": LstmSeqDiff.calls, "b2_bwd": lstm_bwd_kernel.launches, "b3": sample_batch_kernel.launches}
+
+    cfg = make_config("sad_2p", pred_weight=0.25, burn_in_frames=2048, compute_dtype=args.dtype)
+    setup = learner.make_setup(cfg)
+    state = selfplay.load_model(FLAGSHIP, learner.init_train_state(setup, setup.train.seed, dev))
+    state = parallel.shard_train_state(state, mesh)
+    optimizer = learner.make_optimizer(setup.train)
+    idx_rows, updates, reduce_ms = [], [], []
+    update_priority, sgd_update, sum_over_ranks = replay_mod.update_priority, learner.sgd_update, \
+        learner._sum_over_ranks
+
+    def recording_update_priority(replay, rcfg, idx, priority):
+        idx_rows.append(idx.tolist())
+        return update_priority(replay, rcfg, idx, priority)
+
+    def recording_sgd_update(*a, **k):
+        new_state, metrics = sgd_update(*a, **k)
+        updates.append({"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"])})
+        return new_state, metrics
+
+    def timed_sum_over_ranks(*a, **k):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = sum_over_ranks(*a, **k)
+        torch.cuda.synchronize(dev)
+        reduce_ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    replay_mod.update_priority, learner.sgd_update = recording_update_priority, recording_sgd_update
+    learner._sum_over_ranks = timed_sum_over_ranks
+    out = {"rank": mesh.rank, "world": mesh.world, "dtype": args.dtype,
+           "envs_per_rank": cfg.num_envs // mesh.world, "batch_per_rank": setup.train.batchsize // mesh.world}
+    reset_counts()
+    torch.cuda.synchronize(dev)
+    t0 = time.time()
+    state, stats = learner.collect_only(setup, state)
+    torch.cuda.synchronize(dev)
+    out.update(collect={k: float(v) for k, v in stats.items()}, collect_wall_s=time.time() - t0,
+               collect_launches=counts())
+    size = int(state.replay.size)
+    out["ring"] = {"size": size, "packed_sha256": hashlib.sha256(state.replay.packed[:size].cpu().numpy()
+                                                                 .tobytes()).hexdigest(),
+                   "action_sha256": hashlib.sha256(state.replay.action[:size].cpu().numpy().tobytes()).hexdigest()}
+    out["chunks"] = []
+    for _ in range(args.chunks):
+        reset_counts()
+        torch.cuda.synchronize(dev)
+        t0 = time.time()
+        state, metrics = learner.train_chunk(setup, optimizer, state)
+        torch.cuda.synchronize(dev)
+        out["chunks"].append({"metrics": {k: float(v) for k, v in metrics.items()}, "wall_s": time.time() - t0,
+                              "launches": counts()})
+    replay_mod.update_priority, learner.sgd_update = update_priority, sgd_update
+    learner._sum_over_ranks = sum_over_ranks
+    out.update(idx_rows=idx_rows, updates=updates, reduce_ms=reduce_ms)
+    arrays = {f"param{i}": t.detach().cpu().numpy() for i, t in enumerate(param_leaves(state.params.online))}
+    del state
+    if args.eval_games:
+        policy = loaders.load_any(FLAGSHIP, device=dev)
+        reset_counts()
+        torch.cuda.synchronize(dev)
+        t0 = time.time()
+        mean, _, scores, _, actions, was_done = evaluate(
+            [policy, policy], args.eval_games, 1, num_steps=128, return_actions=True, device=dev, mesh=mesh)
+        out["eval"] = {"mean": mean, "wall_s": time.time() - t0, "launches": counts()}
+        arrays.update(scores=np.asarray(scores), actions=actions, was_done=was_done)
+    parallel.barrier(mesh)
+    if args.world > 1:
+        torch.distributed.destroy_process_group()
+    np.savez(os.path.join(args.out, f"rank{mesh.rank}.npz"), **arrays)
+    with open(os.path.join(args.out, f"rank{mesh.rank}.json"), "w") as f:
+        json.dump(out, f)
 
 
 def cuda_ms(torch, fn, iters=50, warmup=5):
@@ -1909,6 +2065,231 @@ def main():
         fail(f"bench_train launched none of {missing}")
     torch.cuda.empty_cache()
 
+    # 6n. multigpu: the flagship trainer on 2 ranks sharing the card, each a
+    # process of its own (multigpu_rank), against 1 rank; the 2-rank eval
+    # against the 1-rank eval; 2 bf16 ranks within BANDS; then B1 and B2 at a
+    # rank's learner shape.
+    def run_ranks(label, world, dtype, chunks, eval_games):
+        """The ranks of one run, started together; fails if one fails or
+        outlives MULTIGPU_RANK_TIMEOUT_S. Returns (each rank's json, each
+        rank's arrays, wall seconds)."""
+        out = tempfile.mkdtemp(prefix=f"multigpu_{label}_")
+        # the host's cores split between the ranks: oversubscribed OpenMP
+        # threads slow every host op many times over
+        env = dict(os.environ, OMP_NUM_THREADS=str(max(1, (os.cpu_count() or 1) // world)))
+        procs = []
+        t0 = time.time()
+        try:
+            for rank in range(world):
+                log = open(os.path.join(out, f"rank{rank}.log"), "w")
+                cmd = [sys.executable, os.path.abspath(__file__), "--multigpu_rank", str(rank), "--world", str(world),
+                       "--init", f"file://{out}/rendezvous", "--out", out, "--dtype", dtype,
+                       "--chunks", str(chunks), "--eval_games", str(eval_games)]
+                procs.append((subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, env=env), log))
+            for rank, (proc, log) in enumerate(procs):
+                try:
+                    proc.wait(timeout=max(1.0, MULTIGPU_RANK_TIMEOUT_S - (time.time() - t0)))
+                except subprocess.TimeoutExpired:
+                    fail(f"multigpu {label}: rank {rank} did not end within {MULTIGPU_RANK_TIMEOUT_S} s")
+                if proc.returncode != 0:
+                    log.flush()
+                    with open(log.name) as f:
+                        tail = f.read()[-3000:]
+                    fail(f"multigpu {label}: rank {rank} exited {proc.returncode}:\n{tail}")
+            results = []
+            for rank in range(world):
+                with open(os.path.join(out, f"rank{rank}.json")) as f:
+                    results.append(json.load(f))
+            arrays = [dict(np.load(os.path.join(out, f"rank{rank}.npz"))) for rank in range(world)]
+            return results, arrays, time.time() - t0
+        finally:
+            for proc, log in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                log.close()
+            shutil.rmtree(out, ignore_errors=True)
+
+    def ranks_identical(results, arrays):
+        """Every rank of a run holds the same state: stats, ring, index rows,
+        metrics and params."""
+        same = all(r[k] == results[0][k] for r in results[1:] for k in ("collect", "ring", "idx_rows", "updates"))
+        same &= all([c["metrics"] for c in r["chunks"]] == [c["metrics"] for c in results[0]["chunks"]]
+                    for r in results[1:])
+        same &= all(np.array_equal(a[k], arrays[0][k]) for a in arrays[1:] for k in arrays[0])
+        return same
+
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
+    W = MULTIGPU_WORLD
+    one, one_arr, one_s = run_ranks("f32_w1", 1, "float32", 1, 1000)
+    two, two_arr, two_s = run_ranks(f"f32_w{W}", W, "float32", 1, 1000)
+    r1, r2 = one[0], two[0]
+    m1, m2 = r1["chunks"][0]["metrics"], r2["chunks"][0]["metrics"]
+    stat_keys = [k for k in m1 if k.startswith("chunk_") or k in ("dropped_episodes", "explore_ratio")]
+    update_keys = [k for k in m1 if k not in stat_keys]
+    params_gap = max(float(np.abs(two_arr[0][k] - one_arr[0][k]).max()) for k in one_arr[0] if k.startswith("param"))
+    a1, a2 = one_arr[0], two_arr[0]
+    live = ~(a1["was_done"] & a2["was_done"])
+    same_games = ((a1["actions"] == a2["actions"]) | ~live).all(0) & (a1["was_done"] == a2["was_done"]).all(0)
+    gates = {
+        "ranks_identical": ranks_identical(two, two_arr),
+        "collect_stats_equal": r1["collect"] == r2["collect"],
+        "chunk_stats_equal": all(m1[k] == m2[k] for k in stat_keys),
+        "ring_bits_equal": r1["ring"] == r2["ring"],
+        "index_rows_equal": r1["idx_rows"] == r2["idx_rows"],
+        "first_update": all(rel(r2["updates"][0][k], r1["updates"][0][k]) <= MULTIGPU_FIRST_RTOL
+                            for k in ("loss", "grad_norm")),
+        "chunk_means": all(rel(m2[k], m1[k]) <= MULTIGPU_CHUNK_RTOL for k in update_keys),
+        "eval_scores_equal": bool(np.array_equal(a1["scores"], a2["scores"])),
+        "same_launches_per_rank": all(r["chunks"][0]["launches"] == r1["chunks"][0]["launches"]
+                                      and r["collect_launches"] == r1["collect_launches"] for r in two),
+    }
+    eval_agree = float(same_games.mean())
+    per_rank_launches = [{"collect": r["collect_launches"], "train_chunk": r["chunks"][0]["launches"],
+                          "eval": r["eval"]["launches"]} for r in two]
+    reduce_ms = [float(np.mean(r["reduce_ms"])) for r in two]
+    emit({"phase": "multigpu", "run": "float32", "world": W, "backend": "gloo", "device": "cuda:0 (shared)",
+          "config": {"preset": "sad_2p", "pred_weight": 0.25, "burn_in_frames": 2048, **shape,
+                     "envs_per_rank": r2["envs_per_rank"], "batch_per_rank": r2["batch_per_rank"]},
+          "gates": gates, "collect": {"w1": r1["collect"], f"w{W}": r2["collect"]},
+          "first_update": {"w1": r1["updates"][0], f"w{W}": r2["updates"][0],
+                           "rel": {k: rel(r2["updates"][0][k], r1["updates"][0][k]) for k in ("loss", "grad_norm")}},
+          "chunk_means_rel": {k: rel(m2[k], m1[k]) for k in update_keys}, "params_max_abs_gap": params_gap,
+          "ring": r2["ring"], "eval": {"w1": r1["eval"], f"w{W}": [r["eval"] for r in two],
+                                       "same_action_games": eval_agree, "phase5_mean": mean_k},
+          "launches_per_rank": per_rank_launches, "launches_w1": {"collect": r1["collect_launches"],
+                                                                  "train_chunk": r1["chunks"][0]["launches"]},
+          "grad_all_reduce_ms_per_update": reduce_ms,
+          "chunk_wall_s": {"w1": r1["chunks"][0]["wall_s"], f"w{W}": [r["chunks"][0]["wall_s"] for r in two]},
+          "collect_wall_s": {"w1": r1["collect_wall_s"], f"w{W}": [r["collect_wall_s"] for r in two]},
+          "run_wall_s": {"w1": one_s, f"w{W}": two_s}, "card": smi_line,
+          "note": "two ranks share one card: the walls are not scaling"})
+    bad = [k for k, v in gates.items() if not v and k != "eval_scores_equal"]
+    if bad:
+        fail(f"multigpu: {W} ranks differ from 1 rank: {bad}")
+    if not gates["eval_scores_equal"] and eval_agree < MULTIGPU_EVAL_AGREE:
+        fail(f"multigpu: the {W}-rank eval's scores differ and only {eval_agree} of games keep their actions")
+    if any(v == 0 for r in per_rank_launches for k, v in r["train_chunk"].items() if k in ("b1", "b2", "b3")):
+        fail(f"multigpu: a rank launched no B1, B2 or B3: {per_rank_launches}")
+
+    bf, bf_arr, bf_s = run_ranks(f"bf16_w{W}", W, "bfloat16", 2, 0)
+    bf_rows = [c["metrics"] for c in bf[0]["chunks"]]
+    emit({"phase": "multigpu", "run": "bfloat16", "world": W, "chunks": bf_rows,
+          "ranks_identical": ranks_identical(bf, bf_arr), "bands": BANDS,
+          "launches_per_rank": [[c["launches"] for c in r["chunks"]] for r in bf],
+          "grad_all_reduce_ms_per_update": [float(np.mean(r["reduce_ms"])) for r in bf],
+          "chunk_wall_s": [[c["wall_s"] for c in r["chunks"]] for r in bf], "run_wall_s": bf_s, "card": smi_line})
+    if not ranks_identical(bf, bf_arr):
+        fail("multigpu bf16: the ranks hold different states")
+    for chunk, row in enumerate(bf_rows):
+        if not all(math.isfinite(v) for v in row.values()):
+            fail(f"multigpu bf16: non-finite metric in chunk {chunk}: {row}")
+        for k, (lo, hi) in BANDS.items():
+            if not lo <= row[k] <= hi:
+                fail(f"multigpu bf16: chunk {chunk}: {k} = {row[k]} outside the band [{lo}, {hi}]")
+    if any(c["launches"][k] == 0 for r in bf for c in r["chunks"] for k in ("b1_bf16", "b2", "b3")):
+        fail("multigpu bf16: a rank launched no B1 bf16, B2 or B3")
+    multigpu_launches = {"float32": per_rank_launches,
+                         "bfloat16": [[c["launches"] for c in r["chunks"]] for r in bf]}
+
+    # B1 and B2 at a rank's learner shape, [80, 64, 512]: against float64 by
+    # the float32 rule and BF16_RULES (a), over F64_SEEDS_WIDE inputs; timed
+    # beside the plain versions, cuDNN and the bound
+    T, B = B1_RANK
+    rank_worst = {}
+    for seed in range(F64_SEEDS_WIDE):
+        g = torch.Generator().manual_seed(seed)
+        r = lambda *shape, scale=1.0: (scale * torch.randn(*shape, generator=g)).to(dev)
+        xs, h0, c0 = r(T, B, H), r(L, B, H, scale=0.5), r(L, B, H, scale=0.5)
+        cot = (r(T, B, H), r(L, B, H), r(L, B, H))
+        for dtype, params in ((torch.float32, lstm_params), (torch.bfloat16, pb)):
+            tag = "f32" if dtype == torch.float32 else "bf16"
+            ins = [t.to(dtype) for t in (xs, h0, c0)]  # bf16: the reference takes the rounded inputs
+            with torch.no_grad():
+                b1_y = flat3(lstm_seq_kernel(params, ins[0], (ins[1], ins[2])))
+            ys_k, grads_k = fwd_bwd(lstm_seq_diff, *leaves_of(params, *ins, dtype=dtype), cot)
+            ys_p, grads_p = fwd_bwd(lstm_seq_plain, *leaves_of(params, *ins, dtype=dtype), cot)
+            ys_64, _ = fwd_bwd(lstm_seq_plain, *leaves_of(params, *ins, dtype=torch.float64), cot)
+            torch.cuda.synchronize()
+            for who, ys in (("B1", b1_y), ("B2", ys_k), ("plain", ys_p)):
+                key = f"{tag}.{who}"
+                rank_worst[key] = max(rank_worst.get(key, 0.0), max(largest_gap(y, ref) for y, ref in zip(ys, ys_64)))
+            if dtype == torch.float32:
+                rank_worst["f32.B2_grad_rel_to_plain"] = max(rank_worst.get("f32.B2_grad_rel_to_plain", 0.0), *(
+                    largest_gap(gk, gp.double(), rel=True) for gk, gp in zip(grads_k, grads_p)))
+            del ys_k, grads_k, ys_p, grads_p, ys_64
+    rank_ratio = {f"{tag}.{who}": rank_worst[f"{tag}.{who}"] / max(rank_worst[f"{tag}.plain"], 1e-30)
+                  for tag in ("f32", "bf16") for who in ("B1", "B2")}
+    for dtype, params, lib, peak, nbytes in ((torch.float32, lstm_params, cudnn, H100_F32_FLOPS, 4.0),
+                                             (torch.bfloat16, pb, cudnn_bf16, H100_BF16_FLOPS, 2.0)):
+        tag = "" if dtype == torch.float32 else "_bf16"
+        xs_r, h0_r, c0_r = (t.to(dtype) for t in (randn(T, B, H), randn(L, B, H, scale=0.5),
+                                                   randn(L, B, H, scale=0.5)))
+        cot_r = [t.to(dtype) for t in (randn(T, B, H), randn(L, B, H), randn(L, B, H))]
+        with torch.no_grad():
+            reset_counts()
+            lstm_seq_kernel(params, xs_r, (h0_r, c0_r))
+            per_call = counts()
+            ms = cuda_ms(torch, lambda: lstm_seq_kernel(params, xs_r, (h0_r, c0_r)))
+            plain_ms = cuda_ms(torch, lambda: lstm_seq_plain(params, xs_r, (h0_r, c0_r)))
+            library_ms = cuda_ms(torch, lambda: lib(xs_r, (h0_r, c0_r)))
+        b_ms, b_by = bound(lstm_flops(T, B, H, L), nbytes * lstm_words(T, B, H, L), peak=peak)
+        timing[f"B1{tag}_rank"] = {"T": T, "B": B, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                                   "bound_ms": b_ms, "bound_by": b_by,
+                                   "launches_per_call": {k: v for k, v in per_call.items() if k.startswith("b1")}}
+        ps_r, ts_r, leaves_r = leaves_of(params, xs_r, h0_r, c0_r, dtype=dtype)
+        lib_leaves = [t.detach().clone().requires_grad_(True) for t in (xs_r, h0_r, c0_r)]
+
+        def lib_fwd_bwd():
+            out, (h_t, c_t) = lib(lib_leaves[0], (lib_leaves[1], lib_leaves[2]))
+            return torch.autograd.grad((out, h_t, c_t), lib_leaves + list(lib.parameters()), cot_r)
+
+        reset_counts()
+        fwd_bwd(lstm_seq_diff, ps_r, ts_r, leaves_r, cot_r)
+        per_call = counts()
+        ms = cuda_ms(torch, lambda: fwd_bwd(lstm_seq_diff, ps_r, ts_r, leaves_r, cot_r), iters=10, warmup=2)
+        plain_ms = cuda_ms(torch, lambda: fwd_bwd(lstm_seq_plain, ps_r, ts_r, leaves_r, cot_r), iters=10, warmup=2)
+        library_ms = cuda_ms(torch, lib_fwd_bwd, iters=10, warmup=2)
+        b_ms, b_by = bound(3 * lstm_flops(T, B, H, L), nbytes * 2 * lstm_words(T, B, H, L), peak=peak)
+        timing[f"B2{tag}_rank"] = {"T": T, "B": B, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                                   "bound_ms": b_ms, "bound_by": b_by,
+                                   "launches_per_call": {k: v for k, v in per_call.items() if k != "b3"}}
+        del ps_r, ts_r, leaves_r, lib_leaves
+    emit({"phase": "multigpu", "check": "B1 and B2 at a rank's learner shape against float64", "T": T, "B": B,
+          "H": H, "L": L, "seeds": F64_SEEDS_WIDE, "largest_gap_to_f64": rank_worst, "ratio_to_plain": rank_ratio,
+          "factor": F64_FACTOR, "grad_rel_tol": GRAD_REL_TOL,
+          "timing": {k: timing[k] for k in ("B1_rank", "B2_rank", "B1_bf16_rank", "B2_bf16_rank")},
+          "card": smi_line})
+    bad = {k: v for k, v in rank_ratio.items() if not v <= F64_FACTOR}
+    if bad:
+        fail(f"multigpu: at [{T}, {B}] further than {F64_FACTOR}x the plain version from float64: {bad}")
+    if not rank_worst["f32.B2_grad_rel_to_plain"] <= GRAD_REL_TOL:
+        fail(f"multigpu: B2 grads at [{T}, {B}] disagree with autograd of the plain version: {rank_worst}")
+
+    # 6o. multigpu_cli: the real entry under torchrun at world 1, on nccl (the
+    # default backend on the card), one short epoch warm-started from FLAGSHIP
+    out = tempfile.mkdtemp(prefix="multigpu_cli_")
+    cli = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+           "-m", "hanabi_sad_tpu_torch.train.selfplay", "--multihost", "1", "--preset", "sad_2p",
+           "--pred_weight", "0.25", "--load_model", FLAGSHIP, "--burn_in_frames", "2048", "--num_epoch", "1",
+           "--epoch_len", "16", "--num_eval_game", "200", "--save_dir", out]
+    env = dict(os.environ, PYTHONPATH=os.getcwd())
+    t0 = time.time()
+    try:
+        run = subprocess.run(cli, capture_output=True, text=True, timeout=MULTIGPU_CLI_TIMEOUT_S, env=env)
+    except subprocess.TimeoutExpired:
+        fail(f"multigpu_cli: torchrun did not end within {MULTIGPU_CLI_TIMEOUT_S} s")
+    log_path = os.path.join(out, "train.log")
+    log = open(log_path).read() if os.path.exists(log_path) else ""
+    cli_ok = {"exit_0": run.returncode == 0, "latest_pkl": os.path.exists(os.path.join(out, "latest.pkl")),
+              "nccl": "multihost: rank 0 of 1, nccl" in log, "eval": "eval score" in log}
+    emit({"phase": "multigpu_cli", "command": " ".join(cli[1:]), "checks": cli_ok, "wall_s": time.time() - t0,
+          "eval_line": [line for line in log.splitlines() if "eval score" in line], "card": smi_line})
+    shutil.rmtree(out, ignore_errors=True)
+    if not all(cli_ok.values()):
+        fail(f"multigpu_cli: {cli_ok}\n{run.stdout[-2000:]}\n{run.stderr[-3000:]}")
+    torch.cuda.empty_cache()
+
     # 7. kernels: launches are the 3 train chunks' of phase 6 (the eval's B1
     # count is on its line), and of phase 6b for the bf16 routes
     b1, b2, b3t = timing["B1_learner"], timing["B2_learner"], timing["B3_flagship"]
@@ -1929,14 +2310,19 @@ def main():
          "aligned_priority_shape": timing["B1_aligned_priority"],
          "aligned_priority_launches": aligned_prio_counts["b1"], "train_aligned_launches": aligned_totals["b1"],
          "obl_launches": obl_counts["b1"], "obl_forward_launches": obl_fwd_counts["b1"],
-         "action_matrix_launches": am_launches["b1"], "convert_launches": convert_counts["b1"]},
+         "action_matrix_launches": am_launches["b1"], "convert_launches": convert_counts["b1"],
+         "rank_learner_shape": timing["B1_rank"],
+         "multigpu_launches_per_rank": [r["collect"]["b1"] + r["train_chunk"]["b1"] + r["eval"]["b1"]
+                                        for r in per_rank_launches]},
         {"name": "lstm_seq_diff (B2)", "route": "cuda", "source": "hanabi_sad_tpu_torch/ops/csrc/lstm_bwd.cu",
          "replaces": "hanabi_sad_tpu/ops/experimental/pallas_lstm.py:212",
          "launches": totals["b2_bwd"], "calls": totals["b2"], "max_abs_err": b2_max_err, "ms": b2["ms"],
          "plain_ms": b2["plain_ms"], "bound_ms": b2["bound_ms"], "bound_by": b2["bound_by"],
          "library_ms": b2["library_ms"], "shape": "T=80 B=128 H=512 L=2, forward + backward",
          "tensor_cores": tensor_cores["lstm_bwd_f32"], "step_us": timing["persistent_step_us"]["B2_bwd_f32"],
-         "split_ms": timing["B2_split_ms"]["f32"], "train_aligned_launches": aligned_totals["b2_bwd"]},
+         "split_ms": timing["B2_split_ms"]["f32"], "train_aligned_launches": aligned_totals["b2_bwd"],
+         "rank_learner_shape": timing["B2_rank"],
+         "multigpu_launches_per_rank": [r["train_chunk"]["b2_bwd"] for r in per_rank_launches]},
         {"name": "sample_batch (B3)", "route": "cuda",
          "source": "hanabi_sad_tpu_torch/ops/csrc/sample_batch.cu",
          "replaces": "hanabi_sad_tpu/ops/experimental/pallas_replay.py:68",
@@ -1947,7 +2333,9 @@ def main():
          "shape": "64 of 65,536 episodes x [80, 2, 110] bytes -> Batch [80, 64, 2, 838 + 21 + 15]",
          "iql_launches": iql_totals["b3"], "iql_shape": iql_shape, "train_op_launches": op_totals["b3"],
          "train_aligned_launches": aligned_totals["b3"], "train_knobs_launches": knob_totals["b3"],
-         "bench_train_launches": bench_launches["b3"]},
+         "bench_train_launches": bench_launches["b3"],
+         "multigpu_launches_per_rank": [r["train_chunk"]["b3"] for r in per_rank_launches],
+         "multigpu_bf16_launches_per_rank": [sum(c["b3"] for c in r) for r in multigpu_launches["bfloat16"]]},
         {"name": "lstm_seq bf16 (B1)", "route": "cuda", "source": "hanabi_sad_tpu_torch/ops/csrc/lstm_bf16.cu",
          "replaces": "hanabi_sad_tpu/ops/experimental/pallas_lstm.py:166",
          "launches": bf16_totals["b1_bf16"], "max_abs_err": max(v for k, v in bf16_errors.items() if k != "learner"),
@@ -1958,7 +2346,9 @@ def main():
          "step_us": timing["persistent_step_us"]["B1_bf16"],
          "rollout_shape": timing["B1_bf16_rollout"], "rollout_3p_shape": timing["B1_bf16_rollout_3p"],
          "priority_shape": timing["B1_bf16_priority"], "train_op_launches": op_totals["b1_bf16"],
-         "train_knobs_launches": knob_totals["b1_bf16"], "bench_train_launches": bench_launches["b1_bf16"]},
+         "train_knobs_launches": knob_totals["b1_bf16"], "bench_train_launches": bench_launches["b1_bf16"],
+         "rank_learner_shape": timing["B1_bf16_rank"],
+         "multigpu_launches_per_rank": [sum(c["b1_bf16"] for c in r) for r in multigpu_launches["bfloat16"]]},
         {"name": "lstm_seq_diff bf16 (B2)", "route": "cuda",
          "source": "hanabi_sad_tpu_torch/ops/csrc/lstm_bf16.cu",
          "replaces": "hanabi_sad_tpu/ops/experimental/pallas_lstm.py:212",
@@ -1969,7 +2359,9 @@ def main():
          "tensor_cores": tensor_cores["lstm_bwd_bf16"],
          "step_us": timing["persistent_step_us"]["B2_bwd_bf16"], "split_ms": timing["B2_split_ms"]["bf16"],
          "train_op_launches": op_totals["b2_bwd_bf16"], "train_knobs_launches": knob_totals["b2_bwd_bf16"],
-         "bench_train_launches": bench_launches["b2_bwd_bf16"], "bench_train_calls": bench_launches["b2"]},
+         "bench_train_launches": bench_launches["b2_bwd_bf16"], "bench_train_calls": bench_launches["b2"],
+         "rank_learner_shape": timing["B2_bf16_rank"],
+         "multigpu_launches_per_rank": [sum(c["b2_bwd"] for c in r) for r in multigpu_launches["bfloat16"]]},
     ], "train_chunk_wall_s": train_walls, "train_bf16_chunk_wall_s": bf16_walls,
         "train_iql_chunk_wall_s": iql_walls, "iql_launches": iql_totals, "eval_iql_3p_launches": eval3_counts,
         "train_op_chunk_wall_s": op_walls, "train_op_launches": op_totals, "priority_launches": prio_counts,
@@ -1977,12 +2369,16 @@ def main():
         "train_aligned_launches": aligned_totals, "aligned_priority_launches": aligned_prio_counts,
         "train_knobs_chunk_wall_s": knob_walls, "train_knobs_launches": knob_totals, "obl_launches": obl_counts,
         "obl_forward_launches": obl_fwd_counts, "action_matrix_launches": am_launches,
-        "convert_launches": convert_counts, "bench_train_launches": bench_launches})
+        "convert_launches": convert_counts, "bench_train_launches": bench_launches,
+        "multigpu_launches_per_rank": multigpu_launches})
     print(f"# total seconds: {time.time() - t_all:.1f}", flush=True)
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})
 
 
 if __name__ == "__main__":
-    main()
+    if "--multigpu_rank" in sys.argv:
+        multigpu_rank(sys.argv[1:])
+    else:
+        main()
     faulthandler.cancel_dump_traceback_later()

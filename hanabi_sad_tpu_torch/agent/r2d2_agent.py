@@ -20,6 +20,7 @@ import torch
 from hanabi_sad_tpu_torch.device import resolve_device
 from hanabi_sad_tpu_torch.models import r2d2_net
 from hanabi_sad_tpu_torch.models.r2d2_net import NetConfig, R2D2NetParams
+from hanabi_sad_tpu_torch.parallel.mesh import SINGLE, Shard
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,12 +79,15 @@ def init_hidden(cfg: AgentConfig, num_envs: int, players: int, device=None) -> H
     return Hidden(torch.zeros(shape, device=device), torch.zeros(shape, device=device))
 
 
-def _epsilon_greedy(greedy, legal, eps, generator):
+def _epsilon_greedy(greedy, legal, eps, generator, shard: Shard = SINGLE):
     """With probability eps per row, a uniform draw over the legal moves (the
-    argmax of uniform noise on the legal entries), else `greedy`."""
-    noise = torch.rand(legal.shape, generator=generator, device=legal.device)
+    argmax of uniform noise on the legal entries), else `greedy`. With a
+    shard, both draws are made over all ranks' rows and the rank keeps its
+    own."""
+    rows = shard.total(legal.shape[0])
+    noise = shard.take(torch.rand((rows,) + tuple(legal.shape[1:]), generator=generator, device=legal.device))
     random_action = torch.where(legal > 0, noise, -1.0).argmax(dim=-1)
-    explore = torch.rand(eps.shape, generator=generator, device=eps.device) < eps
+    explore = shard.take(torch.rand((rows,), generator=generator, device=eps.device)) < eps
     return torch.where(explore, random_action, greedy)
 
 
@@ -95,14 +99,16 @@ def act(
     generator: Optional[torch.Generator] = None,
     *,
     return_q: bool = False,
+    shard: Shard = SINGLE,
 ) -> Tuple[Dict[str, torch.Tensor], Hidden]:
     """Batched epsilon-greedy act for all envs and players at once.
 
     obs: priv_s [N, P, F], legal_move [N, P, A], eps [N, P].
     Returns ({"a","greedy_a"} [N, P] int64, new hidden). The random arm
     samples uniformly over legal moves (the argmax of uniform noise on the
-    legal entries), drawn from `generator`. return_q adds reply["qa"], the
-    online dueling Q of the submitted action [N, P]."""
+    legal entries), drawn from `generator` (over all ranks' envs with a
+    shard). return_q adds reply["qa"], the online dueling Q of the submitted
+    action [N, P]."""
     N, P = obs["priv_s"].shape[:2]
     L, D = cfg.net.num_lstm_layer, cfg.net.hid_dim
     priv_s = obs["priv_s"].reshape(N * P, -1)
@@ -116,7 +122,7 @@ def act(
     # Greedy over legal entries of the advantage == greedy over the dueling Q.
     greedy = r2d2_net.masked_argmax(adv, legal)
 
-    action = _epsilon_greedy(greedy, legal, eps, generator)
+    action = _epsilon_greedy(greedy, legal, eps, generator, shard)
 
     reply = {"a": action.reshape(N, P), "greedy_a": greedy.reshape(N, P)}
     if return_q:
@@ -135,6 +141,7 @@ def act_with_target(
     hidden: Hidden,
     target_hidden: Hidden,
     generator: Optional[torch.Generator] = None,
+    shard: Shard = SINGLE,
 ) -> Tuple[Dict[str, torch.Tensor], Hidden, Hidden]:
     """Epsilon-greedy act that also advances the TARGET net beside the
     online net, for the fused exact priorities of the continuous rollout.
@@ -158,7 +165,7 @@ def act_with_target(
     t_adv, t_v, new_t_hid = r2d2_net.act_with_v(params.target, cfg.net, priv_s, hid_dict(target_hidden))
     greedy = r2d2_net.masked_argmax(adv, legal)
 
-    action = _epsilon_greedy(greedy, legal, eps, generator)
+    action = _epsilon_greedy(greedy, legal, eps, generator, shard)
 
     q = r2d2_net.duel(v, adv, legal)
     qa = q.gather(1, action[:, None])[:, 0]

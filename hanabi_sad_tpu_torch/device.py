@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Union
 
 import torch
@@ -19,3 +20,13 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             "no CUDA device is available; pass device='cpu' to run on the CPU"
         )
     return torch.device("cuda")
+
+
+def rank_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
+    """The device of one rank of a data-parallel run (one process per GPU):
+    `device` if given, else cuda:LOCAL_RANK (torchrun's variable, 0 without
+    it); raises as `resolve_device` does."""
+    if device is not None:
+        return torch.device(device)
+    resolve_device()
+    return torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))

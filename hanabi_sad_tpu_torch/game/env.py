@@ -24,7 +24,10 @@ Randomness (decks, eps, then permutations, each drawn only when its option is
 on) comes from an explicit torch.Generator, or the decks, the permutations
 and the hand shuffles (or, for the auto-resetting step, the whole fresh
 state) are injected. With `shuffle_color` off the permutations are the
-identity and nothing reads them.
+identity and nothing reads them. With a `shard` (`parallel/mesh.py`) the
+envs are one rank's rows of a data-parallel run: every draw is made over all
+ranks' envs and the rank keeps its rows, so each rank sees the rows of the
+draw that one process stepping every env would make.
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ from hanabi_sad_tpu_torch.game.state import (
     new_game,
     score,
 )
+from hanabi_sad_tpu_torch.parallel.mesh import SINGLE, Shard
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,7 +90,7 @@ def _gen_device(generator: Optional[torch.Generator]) -> torch.device:
 
 
 def sample_perms(
-    g: GameConfig, n: int, generator: Optional[torch.Generator] = None, device=None
+    g: GameConfig, n: int, generator: Optional[torch.Generator] = None, device=None, shard: Shard = SINGLE
 ) -> torch.Tensor:
     """[n, P, C] Other-Play color permutations: one uniform seat per env
     keeps the identity, every other seat a uniform permutation (the JAX
@@ -94,8 +98,8 @@ def sample_perms(
     (default: the generator's)."""
     P, C = g.players, g.num_colors
     gen_device = _gen_device(generator)
-    keep = torch.randint(P, (n,), generator=generator, device=gen_device)
-    perms = torch.rand((n, P, C), generator=generator, device=gen_device).argsort(dim=-1)
+    keep = shard.take(torch.randint(P, (shard.total(n),), generator=generator, device=gen_device))
+    perms = shard.take(torch.rand((shard.total(n), P, C), generator=generator, device=gen_device)).argsort(dim=-1)
     identity = torch.arange(C, device=gen_device).expand(n, P, C)
     seat = torch.arange(P, device=gen_device)[None, :, None]
     return torch.where(seat == keep[:, None, None], identity, perms).to(device or gen_device)
@@ -106,14 +110,15 @@ def identity_perms(g: GameConfig, n: int, device=None) -> torch.Tensor:
 
 
 def sample_hand_shuffles(
-    g: GameConfig, state: GameState, generator: Optional[torch.Generator] = None
+    g: GameConfig, state: GameState, generator: Optional[torch.Generator] = None, shard: Shard = SINGLE
 ) -> torch.Tensor:
     """[N, P, H]: for each observer a fresh uniform permutation of the
     partner's occupied slots, the empty slots kept as a suffix in order (a
     stable argsort of uniform scores, infinity on empty slots)."""
     n, P, H = state.hands.shape
     partner = state.hands[:, [(p + 1) % P for p in range(P)]]  # [N, P, H]
-    scores = torch.rand((n, P, H), generator=generator, device=_gen_device(generator)).to(partner.device)
+    scores = torch.rand((shard.total(n), P, H), generator=generator, device=_gen_device(generator))
+    scores = shard.take(scores).to(partner.device)
     scores = torch.where(partner >= 0, scores, torch.inf)
     return scores.argsort(dim=-1, stable=True)
 
@@ -124,6 +129,7 @@ def observe(
     *,
     generator: Optional[torch.Generator] = None,
     hand_shuffle: Optional[torch.Tensor] = None,
+    shard: Shard = SINGLE,
 ) -> Obs:
     """Per-player observations, shapes [N, P, ...]. With shuffle_obs the
     partner-hand shuffles ([N, P, H], one per observer) are `hand_shuffle`
@@ -134,7 +140,7 @@ def observe(
     seats = [torch.full((n,), p, dtype=torch.long, device=dev) for p in range(g.players)]
     perms = [state.color_perm[:, p] if cfg.shuffle_color else None for p in range(g.players)]
     if cfg.shuffle_obs and hand_shuffle is None:
-        hand_shuffle = sample_hand_shuffles(g, state.game, generator)
+        hand_shuffle = sample_hand_shuffles(g, state.game, generator, shard)
     shuffles = [None if hand_shuffle is None else hand_shuffle[:, p] for p in range(g.players)]
     priv = [
         encoder.encode_observation(g, state.game, s, perm, shuf, hide_action=cfg.hide_action)
@@ -165,20 +171,22 @@ def reset_state(
     color_perm: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
     device=None,
+    shard: Shard = SINGLE,
 ) -> EnvState:
     """n fresh envs; reset() without the observation encode. Device as in
     `new_game`. The color permutations are `color_perm` ([n, P, C]), else
     drawn from `generator` after the decks and eps when shuffle_color is on,
     else the identity."""
     g = cfg.game
-    game = new_game(g, n, deck=decks, generator=generator, device=device)
+    game = new_game(g, n, deck=decks, generator=generator, device=device, shard=shard)
     dev = game.deck.device
     eps_idx = torch.randint(
-        len(cfg.eps_list), (n, g.players), generator=generator, device=_gen_device(generator)
-    ).to(dev)
+        len(cfg.eps_list), (shard.total(n), g.players), generator=generator, device=_gen_device(generator)
+    )
+    eps_idx = shard.take(eps_idx).to(dev)
     eps_menu = torch.tensor(cfg.eps_list, dtype=torch.float32, device=dev)
     if color_perm is None:
-        color_perm = sample_perms(g, n, generator, dev) if cfg.shuffle_color else identity_perms(g, n, dev)
+        color_perm = sample_perms(g, n, generator, dev, shard) if cfg.shuffle_color else identity_perms(g, n, dev)
     return EnvState(
         game=game,
         num_step=torch.zeros((n,), dtype=torch.long, device=dev),
@@ -193,7 +201,7 @@ def reset_state(
 def reset(cfg: EnvConfig, n: int, **kwargs) -> Tuple[EnvState, Obs]:
     """reset_state, then observe (shuffle_obs draws from the same generator)."""
     state = reset_state(cfg, n, **kwargs)
-    return state, observe(cfg, state, generator=kwargs.get("generator"))
+    return state, observe(cfg, state, generator=kwargs.get("generator"), shard=kwargs.get("shard", SINGLE))
 
 
 def step(
@@ -203,12 +211,13 @@ def step(
     *,
     generator: Optional[torch.Generator] = None,
     hand_shuffle: Optional[torch.Tensor] = None,
+    shard: Shard = SINGLE,
 ):
     """One env step. action = {"a": [N, P], "greedy_a": [N, P]} (greedy_a only
-    read in SAD mode). Returns (state, obs, reward, done). `generator` and
-    `hand_shuffle` are observe()'s."""
+    read in SAD mode). Returns (state, obs, reward, done). `generator`,
+    `hand_shuffle` and `shard` are observe()'s."""
     new_state, reward, done = step_state(cfg, state, action)
-    obs = observe(cfg, new_state, generator=generator, hand_shuffle=hand_shuffle)
+    obs = observe(cfg, new_state, generator=generator, hand_shuffle=hand_shuffle, shard=shard)
     return new_state, obs, reward, done
 
 
@@ -271,24 +280,26 @@ def step_autoreset(
     generator: Optional[torch.Generator] = None,
     fresh: Optional[EnvState] = None,
     hand_shuffle: Optional[torch.Tensor] = None,
+    shard: Shard = SINGLE,
 ):
     """step() with immediate auto-reset: an env whose episode this step ends
     is replaced by a freshly reset one (new deck, new eps, new permutations),
     so no frame idles.
 
     The fresh states come from `fresh` ([N] envs, injected by tests) or else
-    from `reset_state` with `generator` (all N drawn, the done ones kept).
-    The observation is encoded once, from the selected state; with
-    shuffle_obs its shuffles are `hand_shuffle` or drawn from `generator`.
+    from `reset_state` with `generator` (all N drawn, the done ones kept;
+    with a shard, all ranks' envs). The observation is encoded once, from the
+    selected state; with shuffle_obs its shuffles are `hand_shuffle` or drawn
+    from `generator`.
 
     Returns (state, obs, reward, done, score): `done` flags that THIS step
     ended an episode (the returned state is already the next one) and
     `score` is the finished episode's final score (valid where done)."""
     stepped, reward, done = step_state(cfg, state, action)
     if fresh is None:
-        fresh = reset_state(cfg, done.shape[0], generator=generator, device=done.device)
+        fresh = reset_state(cfg, done.shape[0], generator=generator, device=done.device, shard=shard)
     new_state = _select(done, fresh, stepped)
-    obs = observe(cfg, new_state, generator=generator, hand_shuffle=hand_shuffle)
+    obs = observe(cfg, new_state, generator=generator, hand_shuffle=hand_shuffle, shard=shard)
     return new_state, obs, reward, done, stepped.last_score
 
 

@@ -17,6 +17,7 @@ import torch
 
 from hanabi_sad_tpu_torch.device import resolve_device
 from hanabi_sad_tpu_torch.game.config import CARDS_PER_RANK, GameConfig
+from hanabi_sad_tpu_torch.parallel.mesh import SINGLE, Shard
 
 # Move-type enum, in HLE uid order; NONE means "no non-deal move yet".
 DISCARD = 0
@@ -94,12 +95,13 @@ def empty_last_action(cfg: GameConfig, n: int, device=None) -> LastAction:
 
 
 def shuffled_decks(
-    cfg: GameConfig, n: int, generator: Optional[torch.Generator] = None, device=None
+    cfg: GameConfig, n: int, generator: Optional[torch.Generator] = None, device=None, shard: Shard = SINGLE
 ) -> torch.Tensor:
     """[n, deck_size] independent uniform shuffles of the full deck, drawn as
-    argsort(torch.rand(n, deck_size)) on the generator's device."""
+    argsort(torch.rand(n, deck_size)) on the generator's device; with a
+    shard, this rank's n rows of the draw over all ranks' envs."""
     gen_device = generator.device if generator is not None else torch.device("cpu")
-    keys = torch.rand(n, cfg.deck_size, generator=generator, device=gen_device)
+    keys = shard.take(torch.rand(shard.total(n), cfg.deck_size, generator=generator, device=gen_device))
     order = torch.argsort(keys, dim=1)
     return full_deck(cfg, gen_device)[order].to(device)
 
@@ -111,18 +113,20 @@ def new_game(
     deck: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
     device=None,
+    shard: Shard = SINGLE,
 ) -> GameState:
     """Deal n fresh games, player 0 to move.
 
     deck: optional injected [n, deck_size] card codes in deal order; without
-    it the decks are shuffled from `generator`. Deal order is HLE's:
+    it the decks are shuffled from `generator` (this shard's rows of the
+    global draw, `shuffled_decks`). Deal order is HLE's:
     hand_size cards to player 0, then player 1, ...
 
     The games live on `device`, else on the injected deck's device; with
     neither, on `cuda` (raising where there is none)."""
     P, H = cfg.players, cfg.hand_size
     if deck is None:
-        deck = shuffled_decks(cfg, n, generator, resolve_device(device))
+        deck = shuffled_decks(cfg, n, generator, resolve_device(device), shard)
     deck = torch.as_tensor(deck, dtype=torch.long, device=device)
     if deck.shape != (n, cfg.deck_size):
         raise ValueError(f"deck must be [{n}, {cfg.deck_size}], got {tuple(deck.shape)}")

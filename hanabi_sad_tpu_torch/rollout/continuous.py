@@ -37,6 +37,7 @@ from hanabi_sad_tpu_torch.agent import r2d2_agent
 from hanabi_sad_tpu_torch.agent.r2d2_agent import AgentConfig, AgentParams
 from hanabi_sad_tpu_torch.game import env as env_mod
 from hanabi_sad_tpu_torch.game.env import EnvConfig, EnvState
+from hanabi_sad_tpu_torch.parallel.mesh import SINGLE, Shard
 from hanabi_sad_tpu_torch.replay.bitpack import pack_bits, unpack_bits
 from hanabi_sad_tpu_torch.replay.prioritized import ReplayConfig
 
@@ -114,10 +115,12 @@ def run_continuous_chunk(
     actor: ActorState,
     num_steps: int,
     generator: Optional[torch.Generator] = None,
+    shard: Shard = SINGLE,
 ) -> Tuple[ActorState, StreamChunk]:
     """Roll num_steps live steps from the persistent actor state. Explore
     draws, fresh decks, eps, permutations and hand shuffles come from
-    `generator`. An actor with a target hidden steps both nets
+    `generator`, over all ranks' envs with a shard (the actor holds this
+    rank's rows, `parallel/mesh.py`). An actor with a target hidden steps both nets
     (act_with_target) and records their Q streams; one without steps the
     online net alone (act with its Q) and records no tqa."""
     env_state, obs = actor.env_state, actor.obs
@@ -127,14 +130,14 @@ def run_continuous_chunk(
     for _ in range(num_steps):
         if with_target:
             reply, hidden, t_hidden = r2d2_agent.act_with_target(
-                params, agent_cfg, obs, hidden, t_hidden, generator
+                params, agent_cfg, obs, hidden, t_hidden, generator, shard
             )
         else:
-            reply, hidden = r2d2_agent.act(params, agent_cfg, obs, hidden, generator, return_q=True)
+            reply, hidden = r2d2_agent.act(params, agent_cfg, obs, hidden, generator, return_q=True, shard=shard)
         bits = torch.cat([obs["priv_s"], obs["legal_move"], obs["own_hand"]], dim=-1)
         env_state, obs, reward, done, score = env_mod.step_autoreset(
             env_cfg, env_state, {"a": reply["a"], "greedy_a": reply["greedy_a"]},
-            generator=generator,
+            generator=generator, shard=shard,
         )
         hidden = r2d2_agent.reset_hidden_where(done, hidden)
         rec = (pack_bits(bits), reply["a"], reply["greedy_a"], reply["qa"], reward, done, score)

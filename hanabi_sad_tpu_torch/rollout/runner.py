@@ -26,6 +26,7 @@ from hanabi_sad_tpu_torch.agent import r2d2_agent
 from hanabi_sad_tpu_torch.agent.r2d2_agent import AgentConfig, AgentParams, Batch
 from hanabi_sad_tpu_torch.game import env as env_mod
 from hanabi_sad_tpu_torch.game.env import EnvConfig
+from hanabi_sad_tpu_torch.parallel.mesh import SINGLE, Shard
 from hanabi_sad_tpu_torch.replay.prioritized import EpisodeBatch
 
 
@@ -55,6 +56,7 @@ def run_episode_chunk(
     decks: Optional[torch.Tensor] = None,
     color_perm: Optional[torch.Tensor] = None,
     device=None,
+    shard: Shard = SINGLE,
 ) -> RolloutOutput:
     """Reset num_envs envs and roll num_steps steps of epsilon-greedy
     self-play with the online net (`act` with its Q: one B1 call a step on
@@ -64,18 +66,20 @@ def run_episode_chunk(
     The decks, eps and permutations (in `reset_state`'s order), the explore
     draws and, with shuffle_obs, the hand shuffles of every observe come from
     `generator`; decks [N, deck_size] and color_perm [N, P, C] may be
-    injected. Runs on `device` (default: the decks', else `cuda`)."""
+    injected. With a shard the num_envs envs are this rank's rows and every
+    draw is made over all ranks' envs. Runs on `device` (default: the
+    decks', else `cuda`)."""
     P = env_cfg.game.players
     env_state, obs = env_mod.reset(
-        env_cfg, num_envs, decks=decks, color_perm=color_perm, generator=generator, device=device
+        env_cfg, num_envs, decks=decks, color_perm=color_perm, generator=generator, device=device, shard=shard
     )
     hidden = r2d2_agent.init_hidden(agent_cfg, num_envs, P, env_state.done.device)
     recs = []
     for _ in range(num_steps):
-        reply, hidden = r2d2_agent.act(params, agent_cfg, obs, hidden, generator, return_q=True)
+        reply, hidden = r2d2_agent.act(params, agent_cfg, obs, hidden, generator, return_q=True, shard=shard)
         rec = (obs["priv_s"], obs["legal_move"], obs["own_hand"], reply["a"], reply["greedy_a"], reply["qa"])
         env_state, obs, reward, done = env_mod.step(
-            env_cfg, env_state, {"a": reply["a"], "greedy_a": reply["greedy_a"]}, generator=generator
+            env_cfg, env_state, {"a": reply["a"], "greedy_a": reply["greedy_a"]}, generator=generator, shard=shard
         )
         recs.append(rec + (reward, done))
     fields = [torch.stack(x) for x in zip(*recs)]
@@ -193,6 +197,7 @@ def eval_rollout(
     act_fns: Optional[Sequence] = None,
     return_actions: bool = False,
     color_perm: Optional[torch.Tensor] = None,
+    shard: Shard = SINGLE,
 ):
     """Greedy evaluation of N games, one per deck of decks [N, deck_size]:
     eps = 0, no forced termination (pass env_cfg with max_len <= 0), and a
@@ -200,7 +205,10 @@ def eval_rollout(
     the cross-play harness. Runs on the decks' device.
 
     act_fns optionally overrides the per-seat act function (signature of
-    r2d2_agent.act). With env_cfg.shuffle_color each seat sees the game
+    r2d2_agent.act; with a shard of more than one rank it is also given
+    `shard=`). With a shard the N games are this rank's rows, and the eps,
+    permutation, explore and hand-shuffle draws are made over all ranks'
+    games. With env_cfg.shuffle_color each seat sees the game
     through its row of color_perm [N, P, C] (drawn from a generator seeded 0
     when not given); with env_cfg.shuffle_obs the hand shuffles come from
     that generator.
@@ -217,7 +225,8 @@ def eval_rollout(
 
     # eps == 0, so the generator's draws never decide an action.
     generator = torch.Generator(device=device).manual_seed(0)
-    env_state, obs = env_mod.reset(env_cfg, N, decks=decks, color_perm=color_perm, generator=generator)
+    env_state, obs = env_mod.reset(env_cfg, N, decks=decks, color_perm=color_perm, generator=generator, shard=shard)
+    sharded = {} if shard.world == 1 else {"shard": shard}
     hiddens = [r2d2_agent.init_hidden(cfg, N, 1, device) for cfg in agent_cfgs]
     zero_eps = torch.zeros((N, 1), device=device)
     applied_steps, was_done_steps = [], []
@@ -230,7 +239,7 @@ def eval_rollout(
                 "eps": zero_eps,
             }
             reply, hiddens[p] = act_fns[p](
-                params_per_player[p], agent_cfgs[p], p_obs, hiddens[p], generator
+                params_per_player[p], agent_cfgs[p], p_obs, hiddens[p], generator, **sharded
             )
             actions.append(reply["a"][:, 0])
             greedy.append(reply["greedy_a"][:, 0])
@@ -238,7 +247,7 @@ def eval_rollout(
         if return_actions:
             was_done_steps.append(env_state.done)
             applied_steps.append(action["a"].gather(1, env_state.game.cur_player[:, None])[:, 0])
-        env_state, obs, _, _ = env_mod.step(env_cfg, env_state, action, generator=generator)
+        env_state, obs, _, _ = env_mod.step(env_cfg, env_state, action, generator=generator, shard=shard)
 
     if return_actions:
         return (

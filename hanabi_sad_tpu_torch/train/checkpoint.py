@@ -33,6 +33,11 @@ key words (word 0 * 2**32 + word 1). So a resumed run draws other decks and
 batches than the JAX package would, as every port run already does; a port
 payload resumed on the device type that wrote it continues its streams
 exactly.
+
+A data-parallel run (`parallel/mesh.py`) holds the same state on every rank:
+rank 0 alone writes its payloads (`train/selfplay.py`), and every rank loads
+`--load_model`; the actor is in no payload, so each rank resumes from its
+own freshly reset envs.
 """
 
 from __future__ import annotations

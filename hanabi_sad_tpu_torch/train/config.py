@@ -2,12 +2,16 @@
 
 `TrainConfig`, `derived`, `generate_explore_eps`, `PRESETS` and `make_config`
 are the JAX package's, field for field, so a flag line or a saved config
-means the same in both packages. The port trains every single-card mode of
-the JAX trainer: VDN or IQL at 2-5 players in the continuous or the aligned
-rollout, with Other-Play (`shuffle_color`) and shuffled observations,
-initial priorities fused into the rollout, from a separate target forward or
+means the same in both packages. The port trains every mode of the JAX
+trainer: VDN or IQL at 2-5 players in the continuous or the aligned rollout,
+with Other-Play (`shuffle_color`) and shuffled observations, initial
+priorities fused into the rollout, from a separate target forward or
 online-online, `stacked_td` and `snapshot_sampling`, in float32 or bfloat16
-compute, with `profile_chunks`. `multihost` raises NotImplementedError.
+compute, with `profile_chunks`, on one card or, with `multihost`, on W
+data-parallel ranks: one process per GPU under torchrun, joined over
+torch.distributed (`parallel/mesh.py`), which compute what one process
+computes. num_envs, the derived batchsize and num_eval_game must then divide
+by W.
 
 The loop alternates a rollout chunk (num_envs envs, max_len steps) with
 `num_update_per_chunk` gradient updates. The replay ratio, train frames per
@@ -104,8 +108,6 @@ class TrainConfig:
             raise ValueError(f"method must be 'vdn' or 'iql', got {self.method!r}")
         if self.rollout_mode not in ("aligned", "continuous"):
             raise ValueError(f"rollout_mode must be 'aligned' or 'continuous', got {self.rollout_mode!r}")
-        if self.multihost:
-            raise NotImplementedError("multihost is not ported yet")
         if self.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"compute_dtype must be 'float32' or 'bfloat16', got {self.compute_dtype!r}")
 

@@ -23,6 +23,15 @@ One `train_chunk` call:
   3. syncs the target net whenever the global update counter is a multiple
      of `num_update_between_sync`.
 
+On W data-parallel ranks (`parallel/mesh.py`; the state's `mesh`, set by
+`shard_train_state`) the same global program runs: each rank collects its
+num_envs / W envs, the ranks all-gather the assembled episodes and their
+priorities and every rank writes the same ring; each update, every rank
+draws the same indices, runs its batchsize / W rows, and the gradients and
+metrics are summed over the ranks before the optimizer step, the new
+priorities all-gathered. The chunk stats are counts summed over the ranks,
+so they equal the one-rank run's.
+
 The online params, the optimizer state and the replay are updated in place.
 Metrics stay on the device as 0-d tensors; the caller reads them once per
 chunk.
@@ -41,7 +50,10 @@ from hanabi_sad_tpu_torch.device import resolve_device
 from hanabi_sad_tpu_torch.game.config import GameConfig
 from hanabi_sad_tpu_torch.game.env import EnvConfig
 from hanabi_sad_tpu_torch.models.r2d2_net import NetConfig, R2D2NetParams
+from hanabi_sad_tpu_torch.parallel import mesh as mesh_mod
+from hanabi_sad_tpu_torch.parallel.mesh import Mesh
 from hanabi_sad_tpu_torch.replay import prioritized as replay_mod
+from hanabi_sad_tpu_torch.replay.bitpack import pack_bits
 from hanabi_sad_tpu_torch.replay.prioritized import ReplayConfig, ReplayState
 from hanabi_sad_tpu_torch.rollout import continuous, runner
 from hanabi_sad_tpu_torch.train.config import TrainConfig, generate_explore_eps
@@ -151,6 +163,7 @@ class TrainState(NamedTuple):
     env_gen: torch.Generator  # decks, eps and explore draws of the rollout
     sample_gen: torch.Generator  # replay sampling
     actor: Optional[continuous.ActorState] = None  # continuous mode only
+    mesh: Mesh = Mesh()  # the data-parallel ranks (world 1: one process)
 
 
 def init_train_state(setup: Setup, seed: int, device=None) -> TrainState:
@@ -191,49 +204,76 @@ def sgd_update(
 
     `presampled` is None (sample here, from the live priority state) or an
     (is_weight, idx) pair drawn by the caller; B3 reads the ring's episodes
-    at idx either way."""
+    at idx either way. On W ranks every rank holds the same global idx and
+    IS weights and runs its batchsize / W rows; the gradients and metrics
+    are summed over the ranks (one `all_reduce_sum`), so every rank takes
+    the same Adam step, and the rows' new priorities are all-gathered, so
+    every rank writes all of them."""
     cfg = setup.train
+    mesh = state.mesh
     params = state.params
     if state.num_update % cfg.num_update_between_sync == 0:
         params = r2d2_agent.sync_target(params)
 
     if presampled is None:
-        batch, is_weight, idx = replay_mod.sample(
+        idx, is_weight = replay_mod.sample_indices(
             state.replay, setup.replay, cfg.batchsize, generator=state.sample_gen
         )
     else:
         is_weight, idx = presampled
-        batch = replay_mod.batch_at(state.replay, setup.replay, idx)
+    mesh_mod.check_divisible(mesh, batchsize=cfg.batchsize)
+    batch = replay_mod.batch_at(state.replay, setup.replay, mesh.shard.take(idx))
 
     leaves = param_leaves(params.online)
     for t in leaves:
         t.requires_grad_(True)
     per_ep_loss, priority, stats = r2d2_agent.loss(params, setup.agent, batch, cfg.pred_weight)
-    loss_val = (per_ep_loss * is_weight).mean()
+    loss_val = (per_ep_loss * mesh.shard.take(is_weight)).mean()
     grads = torch.autograd.grad(loss_val, leaves, allow_unused=True)
     grads = [torch.zeros_like(t) if g is None else g for t, g in zip(leaves, grads)]
+    metrics = {"loss": loss_val.detach(), **stats}
+    if mesh.world > 1:
+        grads, metrics = _sum_over_ranks(grads, metrics, mesh)
     opt_state, grad_norm = optimizer.step(leaves, grads, state.opt_state)
 
     agg = r2d2_agent.aggregate_priority(priority, batch.seq_len, cfg.eta)
+    (agg,) = mesh_mod.all_gather_rows([agg], mesh)
     replay = replay_mod.update_priority(state.replay, setup.replay, idx, agg)
     new_state = state._replace(
         params=params, opt_state=opt_state, replay=replay, num_update=state.num_update + 1
     )
-    metrics = {"loss": loss_val.detach(), "grad_norm": grad_norm}
-    metrics.update(stats)
-    return new_state, metrics
+    return new_state, {"loss": metrics.pop("loss"), "grad_norm": grad_norm, **metrics}
+
+
+def _sum_over_ranks(grads: List[torch.Tensor], metrics: Dict[str, torch.Tensor], mesh: Mesh):
+    """The global gradient and metrics from each rank's: the loss and the
+    metrics are means over the rank's rows, so each is weighted 1 / W (the
+    rows' share of the batch) and the gradients with it, then everything is
+    summed over the ranks in one flat buffer."""
+    keys = list(metrics)
+    share = 1.0 / mesh.world
+    flat = torch.cat([g.reshape(-1).float() for g in grads] + [metrics[k].reshape(1).float() for k in keys])
+    flat = mesh_mod.all_reduce_sum(flat * share, mesh)
+    out, start = [], 0
+    for g in grads:
+        out.append(flat[start : start + g.numel()].view_as(g).to(g.dtype))
+        start += g.numel()
+    return out, {k: flat[start + i] for i, k in enumerate(keys)}
 
 
 def collect_chunk(
-    setup: Setup, params: AgentParams, generator: torch.Generator
+    setup: Setup, params: AgentParams, generator: torch.Generator, mesh: Mesh = Mesh()
 ) -> Tuple[replay_mod.EpisodeBatch, torch.Tensor, Dict[str, torch.Tensor]]:
     """One aligned chunk on the generator's device: every env resets and
     plays one padded episode, whose replay items and initial priorities it
     returns, with chunk stats (0-d device tensors). The explore ratio counts
-    live frames only."""
+    live frames only. On W ranks the episodes and priorities are this
+    rank's num_envs / W envs', the stats the global ones."""
     cfg = setup.train
+    num_envs = mesh_mod.local_rows(cfg.num_envs, mesh.world, "num_envs")
     out = runner.run_episode_chunk(
-        params, setup.agent, setup.env, cfg.num_envs, cfg.max_len, generator=generator, device=generator.device
+        params, setup.agent, setup.env, num_envs, cfg.max_len, generator=generator, device=generator.device,
+        shard=mesh.shard,
     )
     episodes = runner.chunk_to_episodes(out, setup.agent)
     batch = runner.episodes_to_batch(episodes)
@@ -242,13 +282,41 @@ def collect_chunk(
     prev_done = torch.cumsum(out.done.long(), 0) - out.done.long() > 0  # [T, N]
     live = (~prev_done)[..., None]  # [T, N, 1], over the players
     deviated = (out.action != out.greedy_a) & live
+    sums = _counts_over_ranks({
+        "score": out.last_score.float().sum(),
+        "games": torch.tensor(float(num_envs), device=out.done.device),
+        "frames": episodes.seq_len.sum(),
+        "items": torch.tensor(float(episodes.seq_len.shape[0]), device=out.done.device),
+        "deviated": deviated.sum().float(),
+        "live": (live.sum() * out.action.shape[-1]).float(),
+    }, mesh)
     stats = {
-        "chunk_score": out.last_score.float().mean(),
-        "chunk_len": episodes.seq_len.mean(),
-        "chunk_frames": episodes.seq_len.sum(),
-        "explore_ratio": deviated.sum() / torch.clamp(live.sum() * out.action.shape[-1], min=1),
+        "chunk_score": sums["score"] / sums["games"],
+        "chunk_len": sums["frames"] / sums["items"],
+        "chunk_frames": sums["frames"],
+        "explore_ratio": sums["deviated"] / torch.clamp(sums["live"], min=1),
     }
     return episodes, priority, stats
+
+
+def _counts_over_ranks(counts: Dict[str, torch.Tensor], mesh: Mesh) -> Dict[str, torch.Tensor]:
+    """A chunk's float32 counts summed over the ranks in one call. They are
+    whole numbers, summed in float64 and exact, so a stat made of them
+    equals the one-rank run's."""
+    if mesh.world == 1:
+        return counts
+    keys = list(counts)
+    flat = mesh_mod.all_reduce_sum(torch.stack([counts[k].double() for k in keys]), mesh)
+    return {k: flat[i].float() for i, k in enumerate(keys)}
+
+
+def _add_over_ranks(setup: Setup, state: TrainState, packed, action, reward, bootstrap, seq_len, priority,
+                    valid=None) -> ReplayState:
+    """Every rank's new episodes, concatenated in rank order (the one-rank
+    run's env-major order), written into this rank's whole ring."""
+    fields = [packed, action, reward, bootstrap, seq_len, priority] + ([] if valid is None else [valid])
+    fields = mesh_mod.all_gather_rows(fields, state.mesh)
+    return replay_mod.add_packed(state.replay, setup.replay, *fields[:6], valid=None if valid is None else fields[6])
 
 
 def collect_into_replay(setup: Setup, state: TrainState) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
@@ -257,11 +325,14 @@ def collect_into_replay(setup: Setup, state: TrainState) -> Tuple[TrainState, Di
     tensors)."""
     cfg = setup.train
     if cfg.rollout_mode == "aligned":
-        episodes, priority, chunk_stats = collect_chunk(setup, state.params, state.env_gen)
-        return state._replace(replay=replay_mod.add(state.replay, setup.replay, episodes, priority)), chunk_stats
+        ep, priority, chunk_stats = collect_chunk(setup, state.params, state.env_gen, state.mesh)
+        packed = pack_bits(torch.cat([ep.priv_s, ep.legal_move, ep.own_hand], dim=-1))
+        replay = _add_over_ranks(setup, state, packed, ep.action, ep.reward, ep.bootstrap, ep.seq_len, priority)
+        return state._replace(replay=replay), chunk_stats
 
     actor, stream = continuous.run_continuous_chunk(
-        state.params, setup.agent, setup.env, state.actor, cfg.max_len, generator=state.env_gen
+        state.params, setup.agent, setup.env, state.actor, cfg.max_len, generator=state.env_gen,
+        shard=state.mesh.shard,
     )
     actor, episodes = continuous.assemble_episodes(actor, stream, cfg.slots_per_env)
     if not cfg.vdn:
@@ -274,19 +345,24 @@ def collect_into_replay(setup: Setup, state: TrainState) -> Tuple[TrainState, Di
             priority = continuous.exact_episode_priorities(
                 state.params, setup.agent, setup.replay, episodes, n_step_r, bootstrap
             )
-    replay = replay_mod.add_packed(
-        state.replay, setup.replay, episodes.packed, episodes.action, n_step_r, bootstrap,
-        episodes.seq_len, priority, valid=episodes.valid,
-    )
-    frames = torch.where(episodes.valid, episodes.seq_len, 0.0).sum()
-    n_completed = torch.clamp(episodes.num_completed.float(), min=1.0)
-    chunk_stats = {
-        "chunk_score": episodes.score_sum / n_completed,
-        "chunk_len": frames / torch.clamp(episodes.valid.sum(), min=1),
-        "chunk_frames": frames,
-        "dropped_episodes": episodes.dropped.float(),
+    replay = _add_over_ranks(setup, state, episodes.packed, episodes.action, n_step_r, bootstrap,
+                             episodes.seq_len, priority, valid=episodes.valid)
+    sums = _counts_over_ranks({
+        "score": episodes.score_sum,
+        "completed": episodes.num_completed.float(),
+        "frames": torch.where(episodes.valid, episodes.seq_len, 0.0).sum(),
+        "valid": episodes.valid.sum().float(),
+        "dropped": episodes.dropped.float(),
         # every continuous-mode frame is live
-        "explore_ratio": (stream.action != stream.greedy).float().mean(),
+        "deviated": (stream.action != stream.greedy).sum().float(),
+        "acts": torch.tensor(float(stream.action.numel()), device=stream.action.device),
+    }, state.mesh)
+    chunk_stats = {
+        "chunk_score": sums["score"] / torch.clamp(sums["completed"], min=1.0),
+        "chunk_len": sums["frames"] / torch.clamp(sums["valid"], min=1),
+        "chunk_frames": sums["frames"],
+        "dropped_episodes": sums["dropped"],
+        "explore_ratio": sums["deviated"] / sums["acts"],
     }
     return state._replace(replay=replay, actor=actor), chunk_stats
 

@@ -24,6 +24,22 @@ LSTM in bfloat16 (B1 and B2's bfloat16 routes on the card); `--preset iql_2p`
 + SAD + Other-Play at a small size); the shipped OP runs also set
 `--continuous_exact_priority 0` (initial priorities from the rollout's
 online Q) and `--compute_dtype bfloat16`.
+
+Data-parallel training, one process per GPU (torch needs that, where JAX
+shards one process over its devices), under torchrun:
+
+    python -m torch.distributed.run --standalone --nproc_per_node <cards> \
+        -m hanabi_sad_tpu_torch.train.selfplay --multihost 1 --preset sad_2p ...
+
+`--multihost 1` joins the process group (`parallel.initialize_multihost`,
+nccl on the cards, gloo with `--device cpu`) and runs rank r on
+cuda:LOCAL_RANK; an explicit `--device` wins. The W ranks compute what one
+process computes (`parallel/mesh.py`); num_envs, the batch and
+num_eval_game must divide by W. Rank 0 alone writes `train.log` and the
+checkpoints; every rank loads `--load_model`. A torchrun launch of more
+than one process without `--multihost 1` raises, rather than train
+unrelated copies into one save_dir. Torch needs no pre-import guard where
+the JAX trainer has one: nothing initialises a backend at import.
 """
 
 from __future__ import annotations
@@ -36,9 +52,12 @@ import sys
 from typing import Dict, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
+from hanabi_sad_tpu_torch import parallel
 from hanabi_sad_tpu_torch.agent import r2d2_agent
 from hanabi_sad_tpu_torch.device import resolve_device
+from hanabi_sad_tpu_torch.ops import build, lstm_seq, sample_batch
 from hanabi_sad_tpu_torch.tools.loaders import EvalPolicy
 from hanabi_sad_tpu_torch.train import checkpoint as ckpt
 from hanabi_sad_tpu_torch.train import learner
@@ -106,28 +125,66 @@ def _stop_trace(prof: torch.profiler.profile, device: torch.device, save_dir: st
     return out
 
 
+def _build_kernels(mesh: parallel.Mesh) -> None:
+    """On a cold tree every rank would run nvcc on the same sources; rank 0
+    builds them (one nvcc each, in parallel) while the others wait."""
+    if mesh.rank == 0:
+        sources = {*lstm_seq.lstm_seq_kernel.sources.values(), *lstm_seq.lstm_bwd_kernel.sources.values(),
+                   sample_batch.sample_batch_kernel.source}
+        build.build_many(sorted(sources))
+    parallel.barrier(mesh)
+
+
 def train(cfg: TrainConfig, *, max_chunks: int = 0, device=None) -> dict:
-    """Run training on `device` (default `cuda`), printing to stdout and to
+    """Run training on `device` (default `cuda`; with `multihost`,
+    cuda:LOCAL_RANK), printing to stdout and, on rank 0, to
     `<save_dir>/train.log`. max_chunks > 0 stops after that many train
     chunks. Returns a summary of the final state: the last eval, the update
-    count and the last chunk's metrics."""
-    device = resolve_device(device)
-    os.makedirs(cfg.save_dir, exist_ok=True)
-    logger = Logger(os.path.join(cfg.save_dir, "train.log"))
+    count and the last chunk's metrics.
+
+    With `multihost` it joins the process group from torchrun's environment
+    unless the caller already has, and leaves the group it joined at the end."""
+    joined = False
+    if cfg.multihost:
+        if not dist.is_initialized():
+            parallel.initialize_multihost(device=device)
+            joined = True
+        mesh = parallel.make_mesh(device)
+    else:
+        if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+            raise RuntimeError(
+                f"WORLD_SIZE={os.environ['WORLD_SIZE']} without multihost: pass --multihost 1 to train one "
+                "data-parallel run, rather than unrelated copies into one save_dir"
+            )
+        mesh = parallel.Mesh(device=resolve_device(device))
     stdout = sys.stdout
-    sys.stdout = logger
+    if mesh.rank == 0:
+        os.makedirs(cfg.save_dir, exist_ok=True)
+        sys.stdout = Logger(os.path.join(cfg.save_dir, "train.log"))
+    else:
+        sys.stdout = open(os.devnull, "w")
     try:
-        return _train(cfg, max_chunks, device)
+        return _train(cfg, max_chunks, mesh)
     finally:
+        sys.stdout.close()
         sys.stdout = stdout
-        logger.close()
+        if joined:
+            dist.destroy_process_group()
 
 
-def _train(cfg: TrainConfig, max_chunks: int, device: torch.device) -> dict:
+def _train(cfg: TrainConfig, max_chunks: int, mesh: parallel.Mesh) -> dict:
+    device = mesh.device
     pprint.pprint(dataclasses.asdict(cfg))
-    saver = TopkSaver(cfg.save_dir, 5, write=ckpt.save)
+    saver = TopkSaver(cfg.save_dir, 5, write=ckpt.save) if mesh.rank == 0 else None
     setup = learner.make_setup(cfg)
     cfg = setup.train  # post-derived (VDN divisors)
+    parallel.check_divisible(mesh, num_envs=cfg.num_envs, batchsize=cfg.batchsize, num_eval_game=cfg.num_eval_game)
+    if cfg.multihost:
+        print(f"multihost: rank {mesh.rank} of {mesh.world}, {dist.get_backend(mesh.group)}; global num_envs "
+              f"{cfg.num_envs}, batch {cfg.batchsize}, {cfg.num_envs // mesh.world} envs and "
+              f"{cfg.batchsize // mesh.world} episodes a rank")
+    if mesh.world > 1 and device.type == "cuda":
+        _build_kernels(mesh)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     print(
         f"device: {device} ({name}); feature_size={setup.env.feature_size}, "
@@ -141,6 +198,7 @@ def _train(cfg: TrainConfig, max_chunks: int, device: torch.device) -> dict:
         if state.num_update:
             print(f"resumed at update {state.num_update}")
         print("*****done*****")
+    state = parallel.shard_train_state(state, mesh)
     optimizer = learner.make_optimizer(cfg)
 
     while int(state.replay.size) < cfg.burn_in_frames:
@@ -172,7 +230,7 @@ def _train(cfg: TrainConfig, max_chunks: int, device: torch.device) -> dict:
         epoch_metrics = []
         for _ in range(chunks_per_epoch):
             # Trace steady-state chunks (chunk 1 builds the kernels) on request.
-            if cfg.profile_chunks > 0 and total_chunks + 1 == 2:
+            if cfg.profile_chunks > 0 and total_chunks + 1 == 2 and mesh.rank == 0:
                 trace = _start_trace(device)
             state, metrics = learner.train_chunk(setup, optimizer, state)
             epoch_metrics.append(metrics)
@@ -207,15 +265,19 @@ def _train(cfg: TrainConfig, max_chunks: int, device: torch.device) -> dict:
             score, perfect, _, _ = evaluate(
                 [policy] * cfg.num_player, cfg.num_eval_game, eval_seed, cfg.eval_bomb,
                 hand_size=cfg.hand_size, num_steps=cfg.eval_max_steps, shuffle_obs=cfg.shuffle_obs,
-                device=device,
+                device=device, mesh=mesh,
             )
             stopwatch.time("eval")
-            config_dict = dataclasses.asdict(cfg)
-            model_saved = saver.save(
-                ckpt.params_payload(state.params.online, config_dict), score,
-                force_save_name=f"model_epoch{epoch}" if snapshot else None,
-            )
-            ckpt.save(os.path.join(cfg.save_dir, "latest.pkl"), ckpt.train_state_payload(state, config_dict))
+            model_saved = False
+            # Every rank holds the same state; rank 0 alone writes it (the
+            # JAX trainer's rule: concurrent writers would corrupt the pickles).
+            if mesh.rank == 0:
+                config_dict = dataclasses.asdict(cfg)
+                model_saved = saver.save(
+                    ckpt.params_payload(state.params.online, config_dict), score,
+                    force_save_name=f"model_epoch{epoch}" if snapshot else None,
+                )
+                ckpt.save(os.path.join(cfg.save_dir, "latest.pkl"), ckpt.train_state_payload(state, config_dict))
             print(
                 "epoch %d, eval score: %.4f, perfect: %.2f, model saved: %s"
                 % (epoch, score, perfect * 100, model_saved)

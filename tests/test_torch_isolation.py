@@ -1,7 +1,7 @@
 """Guards of the port's independence from JAX and of its device rules.
 
-  * no file of `hanabi_sad_tpu_torch/`, nor `chip_smoke.py`, imports jax,
-    optax or the JAX package;
+  * no file of `hanabi_sad_tpu_torch/`, nor `chip_smoke.py`, nor the
+    data-parallel tests' rank worker, imports jax, optax or the JAX package;
   * importing the whole port and loading the flagship checkpoint leaves jax
     and `hanabi_sad_tpu` out of sys.modules, and so do restoring the JAX
     package's train_state payload and writing one;
@@ -29,7 +29,8 @@ FORBIDDEN = {"jax", "jaxlib", "optax", "hanabi_sad_tpu"}
 
 
 def port_files():
-    return sorted((ROOT / "hanabi_sad_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted((ROOT / "hanabi_sad_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "tests" / "torch_multihost_worker.py"]
 
 
 def imported_modules(path):

@@ -44,24 +44,18 @@ def test_config_presets_and_eps_menu_match_jax():
         assert tconfig.generate_explore_eps(*args) == jconfig.generate_explore_eps(*args)
 
 
-@pytest.mark.parametrize("field,value", [("multihost", True)])
-def test_features_not_ported_raise(field, value):
-    with pytest.raises(NotImplementedError):
-        tconfig.make_config("sad_2p", **{field: value})
-
-
 @pytest.mark.parametrize("overrides", [
     dict(compute_dtype="bfloat16"), dict(method="iql"), dict(method="iql", num_player=5),
     dict(profile_chunks=3), dict(method="iql", num_player=3, compute_dtype="bfloat16", profile_chunks=1),
     dict(shuffle_color=True), dict(shuffle_obs=True), dict(exact_priority_in_rollout=False),
     dict(continuous_exact_priority=False), dict(rollout_mode="aligned"), dict(stacked_td=True),
-    dict(snapshot_sampling=True),
+    dict(snapshot_sampling=True), dict(multihost=True),
 ])
 def test_ported_features_construct_as_in_jax(overrides):
     """bfloat16 compute, IQL at 2-5 players, profile_chunks, Other-Play,
     shuffled observations, the two priority knobs, the aligned rollout,
-    stacked_td and snapshot_sampling give the JAX package's config and
-    derived setup; IQL divides nothing by num_player."""
+    stacked_td, snapshot_sampling and multihost give the JAX package's config
+    and derived setup; IQL divides nothing by num_player."""
     t, j = tconfig.make_config("sad_2p", **overrides), jconfig.make_config("sad_2p", **overrides)
     assert dataclasses.asdict(t) == dataclasses.asdict(j)
     assert dataclasses.asdict(t.derived()) == dataclasses.asdict(j.derived())
