@@ -1,7 +1,8 @@
 """Guards of the port's independence from JAX and of its device rules.
 
   * no file of `hanabi_sad_tpu_torch/`, nor `chip_smoke.py`, nor the
-    data-parallel tests' rank worker, imports jax, optax or the JAX package;
+    data-parallel tests' rank worker, nor a `scripts/torch_*.py` tool,
+    imports jax, optax or the JAX package;
   * importing the whole port and loading the flagship checkpoint leaves jax
     and `hanabi_sad_tpu` out of sys.modules, and so do restoring the JAX
     package's train_state payload and writing one;
@@ -30,7 +31,8 @@ FORBIDDEN = {"jax", "jaxlib", "optax", "hanabi_sad_tpu"}
 
 def port_files():
     return sorted((ROOT / "hanabi_sad_tpu_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "tests" / "torch_multihost_worker.py"]
+        ROOT / "chip_smoke.py", ROOT / "tests" / "torch_multihost_worker.py"] + sorted(
+        (ROOT / "scripts").glob("torch_*.py"))
 
 
 def imported_modules(path):
@@ -185,3 +187,12 @@ def test_entry_points_without_a_device_raise_on_a_cpu_only_machine():
         loaders.load_any(str(ROOT / FLAGSHIP))
     with pytest.raises(RuntimeError, match="CUDA"):
         eval_model.main(["--weight", str(ROOT / FLAGSHIP), "--num_game", "2"])
+
+
+@pytest.mark.parametrize("module", ["scripts/torch_learning_curve.py", "scripts/torch_train_chunk_profile.py"])
+def test_slice_11_scripts_are_port_files_and_import_no_jax(module):
+    """The learning-curve script (it reads the JAX runs' logs as text) and
+    the other torch scripts are held to the port's rule."""
+    path = ROOT / module
+    assert path in port_files()
+    assert [m for m in imported_modules(path) if m.split(".")[0] in FORBIDDEN] == []
